@@ -1,0 +1,128 @@
+"""Mel-spectrogram frontend in PyTorch, librosa-compatible.
+
+The port of emotiongestures_tpu/ops/mel.py: the reference computes
+    melspec = librosa.feature.melspectrogram(y, sr=16000, n_fft=1024,
+                                             hop_length=512, power=2)
+    log_melspec = librosa.power_to_db(melspec, ref=np.max).astype(float16)
+with a periodic Hann window, center=True reflect padding and the Slaney
+filterbank. This module holds the host-side pieces (filterbank, window, DFT
+matrices, padding, power_to_db, lengths); `ops/fused_mel.py` holds the
+power mel itself: the CUDA kernel and its plain matmul-DFT version (frames
+@ cos, frames @ -sin, power, @ filterbank), the counterpart of the JAX
+package's `melspectrogram_mxu`.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+SR = 16000
+N_FFT = 1024
+HOP = 512
+N_MELS = 128
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3
+    mels = f / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(
+        f >= min_log_hz,
+        min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+        mels)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    f_sp = 200.0 / 3
+    freqs = m * f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_filterbank(sr: int = SR, n_fft: int = N_FFT, n_mels: int = N_MELS,
+                   fmin: float = 0.0, fmax: float | None = None) -> np.ndarray:
+    """Slaney-normalised triangular filterbank (n_mels, 1 + n_fft // 2),
+    as librosa.filters.mel(htk=False, norm='slaney'), in float64."""
+    if fmax is None:
+        fmax = sr / 2.0
+    n_bins = 1 + n_fft // 2
+    fftfreqs = np.linspace(0, sr / 2.0, n_bins)
+    mel_f = _mel_to_hz_slaney(np.linspace(
+        _hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax), n_mels + 2))
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_f[2: n_mels + 2] - mel_f[:n_mels])
+    return (weights * enorm[:, None]).astype(np.float64)
+
+
+def hann_periodic(n: int) -> np.ndarray:
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
+
+
+@functools.lru_cache(maxsize=4)
+def dft_matrices(n_fft: int = N_FFT):
+    """Real DFT as two (n_fft, 1 + n_fft // 2) float32 operands: cos and
+    -sin (the sign of the forward transform's imaginary part)."""
+    n_bins = 1 + n_fft // 2
+    t = np.arange(n_fft)[:, None]
+    k = np.arange(n_bins)[None, :]
+    ang = 2.0 * np.pi * t * k / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+def pad_center(waves: torch.Tensor, n_fft: int = N_FFT,
+               center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
+    """(B, n) -> (B, n + n_fft) with librosa's center padding."""
+    if not center:
+        return waves
+    return F.pad(waves[:, None, :], (n_fft // 2, n_fft // 2),
+                 mode=pad_mode)[:, 0, :]
+
+
+def n_frames_of(n_padded: int, n_fft: int = N_FFT, hop: int = HOP) -> int:
+    return 1 + (n_padded - n_fft) // hop
+
+
+def power_to_db(S: torch.Tensor, amin: float = 1e-10,
+                top_db: float | None = 80.0) -> torch.Tensor:
+    """librosa.power_to_db with ref=np.max over the whole of `S` (one clip)."""
+    ref = torch.max(S)
+    log_spec = 10.0 * torch.log10(torch.clamp(S, min=amin))
+    log_spec = log_spec - 10.0 * torch.log10(torch.clamp(ref, min=amin))
+    if top_db is not None:
+        log_spec = torch.maximum(log_spec, torch.max(log_spec) - top_db)
+    return log_spec
+
+
+def batched_power_to_db(S: torch.Tensor, amin: float = 1e-10,
+                        top_db: float | None = 80.0) -> torch.Tensor:
+    """power_to_db per clip of a (B, ...) batch: the max is taken per clip,
+    as the JAX package's vmapped frontend does."""
+    dims = tuple(range(1, S.ndim))
+    ref = torch.amax(S, dim=dims, keepdim=True)
+    log_spec = 10.0 * torch.log10(torch.clamp(S, min=amin))
+    log_spec = log_spec - 10.0 * torch.log10(torch.clamp(ref, min=amin))
+    if top_db is not None:
+        log_spec = torch.maximum(
+            log_spec, torch.amax(log_spec, dim=dims, keepdim=True) - top_db)
+    return log_spec
+
+
+def calc_spectrogram_length_from_motion_length(n_frames: int, fps: int) -> int:
+    """(n / fps * 16000 - 1024) / 512 + 1: 60 frames at 15 fps -> 124."""
+    return int(round((n_frames / fps * SR - N_FFT) / HOP + 1))
+
