@@ -11,7 +11,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      all started together;
   2. each hand-written kernel against its plain PyTorch version on the card
      at the serving shapes, with its tolerance; kernel, plain and library
-     times and the bound of the same work;
+     times and the bound of the same work (2a attention, 2b mel, 2c the
+     fused SE-ResNet stage at the audio encoder's stage-3 tail shape, B 1024,
+     32 x 31, C 128, 5 blocks, in fp32 and bf16, with two faults planted in
+     its operands that the check must fail); then kernel 3's path: the
+     serving generator's layer3[0] output through
+     `stage_params_from_module(layer3[1:])` + the kernel, against those
+     blocks on cuDNN, in fp32 and bf16;
   3. the demo entry point (`emotiongestures_torch.cli.demo.main`) with the
      CUDA mel frontend, three diverse samples;
   4. the serving path at full width: batches of 1024 requests (a 4 s wave,
@@ -22,7 +28,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      poses against the same forward on the plain attention path, the same
      comparison with two faults planted in the attention sublayer (it must
      fail them), and a small batch against the CPU. Weights are random,
-     seeded in torch.
+     seeded in torch;
+  5. the diversity-eval CLI through its `main` at full width on 2048
+     synthetic samples in batches of 1024: `--preset fast` (bf16, fused
+     attention, beat frontend on the card) with 2 diversity passes, and the
+     fp32 parity preset with --skip_beat; finite metrics, 6 attention
+     launches per eval_batch in the fast run, and in fp32 a 2-row eval_batch
+     on the card against the CPU.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -44,19 +56,30 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from emotiongestures_torch.cli import demo  # noqa: E402
+from emotiongestures_torch.cli import (  # noqa: E402
+    test_emotion_gesture_diversity_iterative as eval_cli,
+)
+from emotiongestures_torch.core import precision as prec  # noqa: E402
 from emotiongestures_torch.core.device import fp32_exact_on_cuda  # noqa: E402
 from emotiongestures_torch.ops import cuda_lib  # noqa: E402
 from emotiongestures_torch.ops import fused_attention as FA  # noqa: E402
 from emotiongestures_torch.ops import fused_mel as FM  # noqa: E402
+from emotiongestures_torch.ops import fused_se_stage as FS  # noqa: E402
 from emotiongestures_torch.ops import mel as M  # noqa: E402
+from emotiongestures_torch.data.synthetic import (  # noqa: E402
+    SyntheticGestureDataset,
+)
 from emotiongestures_torch.nn import transformer as T  # noqa: E402
+from emotiongestures_torch.nn.resnet_se import SEBasicBlock  # noqa: E402
 from emotiongestures_torch.serving import (  # noqa: E402
     GestureServer,
     set_fused_attention,
 )
 
-# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, HBM3
+# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, bf16 on
+# the tensor cores, HBM3
 FP32_PEAK = 67e12
+BF16_PEAK = 989e12
 HBM_BYTES_PER_S = 3.35e12
 BATCH = 1024
 WAVE_SAMPLES = 64000  # 4 s at 16 kHz
@@ -106,8 +129,8 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return err
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = FP32_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -251,13 +274,169 @@ def phase_mel(gen):
     return entry
 
 
+SE_SHAPE = (BATCH, 32, 31, 128, 5)  # B, H, W, C, blocks: layer3[1:]
+
+
+def se_tol(precision, ref):
+    """Kernel 3 against its plain version. fp32: the tolerance of
+    tests/test_pallas_se.py. bf16: both round bn1's output, the SE fc inputs
+    and each block's output to bf16, and sums in another order can flip a
+    rounding that the next blocks carry on, so the limit is 8 bf16 steps
+    (2^-8 each) of max |ref|, rtol 0: about 3x the largest reading (0.125,
+    two ulps at max |ref| 12.8, on an H100 80GB HBM3 at 700 W)."""
+    if precision == "float32":
+        return dict(rtol=2e-5, atol=2e-5)
+    return dict(rtol=0.0, atol=8 * 2.0 ** -8 * ref.float().abs().max().item())
+
+
+def se_path_tol(precision, ref):
+    """Kernel 3 against the serving generator's own blocks on cuDNN. fp32
+    (TF32 off): cuDNN picks other algorithms (FFT, Winograd) and sums in
+    another order, rtol 1e-4 / atol 1e-4 (reading 1.26e-4 at max |ref| 67.3
+    on an H100 80GB HBM3 at 700 W, where the limit is 6.8e-3). bf16: the
+    blocks round each conv output, BatchNorm output, SE product and residual
+    sum to bf16 where the kernel keeps fp32, so the limit is 2^-5 of
+    max |ref|, rtol 0: about 2.7x the reading (0.75 at max |ref| 66)."""
+    if precision == "float32":
+        return dict(rtol=1e-4, atol=1e-4)
+    return dict(rtol=0.0, atol=2.0 ** -5 * ref.float().abs().max().item())
+
+
+def se_blocks(seed):
+    """Five stride-1 SEBasicBlock(128, 128) on the card, eval mode, with
+    BatchNorm affines and statistics moved off their init."""
+    torch.manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)
+    blocks = torch.nn.Sequential(*[SEBasicBlock(128, 128)
+                                   for _ in range(SE_SHAPE[4])])
+    with torch.no_grad():
+        for m in blocks.modules():
+            if hasattr(m, "running_var"):
+                m.running_mean.normal_(0.0, 0.2, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.normal_(1.0, 0.2, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+    return blocks.cuda().eval()
+
+
+def se_library(blocks, x_nhwc):
+    """Yardstick only (never used by the port): the port's SEBasicBlock
+    stack on cuDNN, the NHWC activations viewed as NCHW (channels-last)."""
+    with torch.no_grad():
+        return blocks(x_nhwc.permute(0, 3, 1, 2))
+
+
+def se_faults(ops):
+    """Operands with a planted fault: one tap of the last block's w1
+    zeroed; the last block's SE gate saturated (f2b + 30)."""
+    w1 = ops[0].clone()
+    w1[-1, 0, 0] = 0
+    f2b = ops[9].clone()
+    f2b[-1] += 30.0
+    return {"w1 tap zeroed": (w1,) + ops[1:],
+            "SE gate saturated": ops[:9] + (f2b,)}
+
+
+def phase_se_stage(gen):
+    B, H, W, C, NB = SE_SHAPE
+    log(f"phase 2c: SE-stage kernel vs plain, B={B}, {H}x{W}, C={C}, "
+        f"{NB} blocks")
+    blocks = se_blocks(0)
+    ops = FS.stage_params_from_module(list(blocks))
+    x = torch.relu(torch.randn(B, H, W, C, generator=gen, device="cuda"))
+    lib_blocks = {"float32": blocks,
+                  "bfloat16": prec.bf16_params_(se_blocks(0))}
+    entry, detail, errs = None, {}, []
+    for precision, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+        xd = x.to(dt)
+        got = FS.fused_se_stage(xd, *ops)
+        ref = FS.fused_se_stage_plain(xd, *ops)
+        torch.cuda.synchronize()
+        tol = se_tol(precision, ref)
+        errs.append(check_close(f"{precision}, max |ref| "
+                                f"{ref.float().abs().max().item():.3f}",
+                                got, ref, **tol))
+        for fault, bad_ops in se_faults(ops).items():
+            bad = FS.fused_se_stage(xd, *bad_ops)
+            err = (bad.float() - ref.float()).abs().max().item()
+            caught = not torch.allclose(bad.float(), ref.float(), **tol)
+            log(f"    planted fault {fault}: max_abs_err {err:.3e}, "
+                f"{'caught' if caught else 'MISSED'}")
+            if not caught:
+                raise SystemExit(f"the SE-stage check misses {fault}")
+        lib = lib_blocks[precision]
+        k_ms = cuda_ms(lambda: FS.fused_se_stage(xd, *ops), iters=3)
+        p_ms = cuda_ms(lambda: FS.fused_se_stage_plain(xd, *ops), iters=3)
+        l_ms = cuda_ms(lambda: se_library(lib, xd), iters=3)
+        convs = NB * 2 * (2 * B * H * W * 9 * C * C)
+        hidden = ops[6].shape[-1]
+        flops = convs + NB * B * 2 * (2 * C * hidden)
+        nbytes = (2 * xd.numel() * xd.element_size()
+                  + sum(t.numel() * (xd.element_size() if t.ndim == 5
+                                     or i in (6, 8) else 4)
+                        for i, t in enumerate(ops)))
+        peak = FP32_PEAK if precision == "float32" else BF16_PEAK
+        b_ms, b_by = bound(flops, nbytes, peak)
+        log(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
+            f"(SEBasicBlocks on cuDNN) {l_ms:.3f} ms; {flops / 1e9:.1f} "
+            f"GFLOP, {nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms ({b_by}, "
+            f"{peak / 1e12:.0f} TFLOP/s)")
+        detail[precision] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "max_abs_err": errs[-1]}
+        if entry is None:
+            entry = {"name": "se_stage", "route": "cuda",
+                     "source": "emotiongestures_torch/csrc/se_stage.cu",
+                     "replaces":
+                         "emotiongestures_tpu/ops/pallas_se_block.py:42",
+                     "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": l_ms}
+    # the entry's numbers are the fp32 stage's; "bf16" holds the bf16 ones
+    entry["max_abs_err"] = errs[0]
+    entry["bf16"] = detail["bfloat16"]
+    return entry, detail
+
+
+def phase_se_path(precision, gen, counts):
+    """The kernel's path: the serving generator's stage-3 tail."""
+    log(f"phase 2c ({precision}): the serving generator's layer3[0] output "
+        f"through the kernel vs layer3[1:] on cuDNN")
+    dev = torch.device("cuda")
+    server = GestureServer(fused_attention=True, precision=precision,
+                           device="cuda", seed=0)
+    fe = server.gen.audio_encoder.feat_extractor
+    waves = requests(gen, BATCH, dev)[0]
+    with torch.no_grad():
+        spec = server.spectrogram(waves).to(server.dtype)
+        x = fe.bn1(torch.relu(fe.conv1(spec[:, None])))
+        x = fe.layer3[0](fe.layer2(fe.layer1(x)))
+        ops = FS.stage_params_from_module(list(fe.layer3[1:]))
+        x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+        torch.cuda.synchronize()
+        reset_counts()
+        got = FS.fused_se_stage(x_nhwc, *ops)
+        n = FS.launches
+        ref = fe.layer3[1:](x).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+    counts["se_stage"] += n
+    if n != 1 or tuple(got.shape) != (BATCH, 32, 31, 128):
+        raise SystemExit(f"{precision}: SE-stage launches {n}, out "
+                         f"{tuple(got.shape)}")
+    check_close(f"{precision} kernel vs layer3[1:], max |ref| "
+                f"{ref.float().abs().max().item():.3f}", got, ref,
+                **se_path_tol(precision, ref))
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the entry points
+# phases 3, 4 and 5: the entry points
 # ---------------------------------------------------------------------------
 
 def reset_counts():
     FA.launches = 0
     FM.launches = 0
+    FS.launches = 0
 
 
 def phase_demo(out_dir: Path):
@@ -433,6 +612,84 @@ def phase_serving(precision, gen, card, counts, profiling=False):
     return result
 
 
+EVAL_SAMPLES = 2048
+EVAL_RUNS = {  # name: extra flags
+    "fast": ["--preset", "fast", "--num_diversity_passes", "2"],
+    "fp32": ["--skip_beat"],
+}
+METRICS = ("l2", "mpjre_deg", "fgd", "beat", "emotion_acc", "diversity")
+
+
+def eval_card_vs_cpu(args):
+    """A 2-row eval_batch on the card against the CPU: same weights (the
+    card's, copied), same batch, same z."""
+    nets = eval_cli.build_models(args, eval_cli.N_WORDS_SYNTHETIC, "cuda")
+    cpu = eval_cli.build_models(args, eval_cli.N_WORDS_SYNTHETIC, "cpu")
+    for name in ("gen", "fgd", "skeleton", "vae"):
+        getattr(cpu, name).load_state_dict(
+            {k: v.cpu() for k, v in getattr(nets, name).state_dict().items()})
+    batch = next(SyntheticGestureDataset(n_samples=2, seed=1).batches(
+        2, shuffle=False, fields=("spectrogram", "text", "pose_seq",
+                                  "eid_label")))
+    inputs = [torch.from_numpy(batch[k]) for k in ("spectrogram", "text",
+                                                   "pose_seq", "eid_label")]
+    z = torch.randn(2, 32, generator=torch.Generator().manual_seed(2))
+    on_card = eval_cli.eval_batch(nets, *[t.cuda() for t in inputs],
+                                  noise=z.cuda())
+    on_cpu = eval_cli.eval_batch(cpu, *inputs, noise=z)
+    names = ("poses", "skeleton logits", "FGD features (poses)",
+             "FGD features (target)", "rotation error")
+    for name, a, b in zip(names, on_card, on_cpu):
+        check_close(f"2 rows, card vs CPU, {name}", a.cpu(), b, rtol=2e-3,
+                    atol=5e-4)
+
+
+def phase_eval(card, counts, out_dir: Path):
+    results = {}
+    for name, extra in EVAL_RUNS.items():
+        log(f"phase 5 ({name}): eval CLI main, --synthetic {EVAL_SAMPLES} "
+            f"--test_batch_size {BATCH} {' '.join(extra)}")
+        args = eval_cli.build_parser().parse_args([
+            "--synthetic", str(EVAL_SAMPLES), "--test_batch_size",
+            str(BATCH), "--device", "cuda", "--log_save_path",
+            str(out_dir / "eval_logs"), *extra])
+        reset_counts()
+        summary = eval_cli.main(args)
+        n_attn = FA.launches
+        timings = summary["timings"]
+        calls = timings["eval_batch_calls"]
+        bad = [k for k in METRICS if not np.isfinite(summary[k])]
+        if bad:
+            raise SystemExit(f"eval {name}: non-finite metrics {bad}")
+        want_calls = (EVAL_SAMPLES // BATCH) * max(
+            args.num_diversity_passes, 1)
+        want_attn = 6 * calls if args.fused_attention else 0
+        if calls != want_calls or n_attn != want_attn:
+            raise SystemExit(f"eval {name}: {calls} eval_batch calls (want "
+                             f"{want_calls}), attention launches {n_attn} "
+                             f"(want {want_attn})")
+        counts["fused_attention"] += n_attn
+        ms = timings["eval_batch_ms"]
+        host_s = (timings["data_wait_s"] + timings["beat_s"]
+                  + timings["frechet_diversity_s"])
+        log(f"  [{card}] {name}: " + ", ".join(
+            f"{k} {summary[k]:.5f}" for k in METRICS))
+        log(f"  [{card}] {name}: eval_batch {np.mean(ms[1:] or ms):.1f} ms "
+            f"per call of {BATCH} rows (device, CUDA events; mean of calls "
+            f"2-{calls}; all: {', '.join(f'{t:.1f}' for t in ms)}); "
+            f"attention launches {n_attn} = 6 x {calls}; eval wall "
+            f"{timings['wall_s']:.2f} s, of which waiting for batches "
+            f"(host data) {timings['data_wait_s']:.2f} s, host beat "
+            f"alignment {timings['beat_s']:.2f} s and Frechet + diversity "
+            f"{timings['frechet_diversity_s']:.2f} s (host share "
+            f"{host_s / timings['wall_s']:.3f})")
+        if name == "fp32":
+            eval_card_vs_cpu(args)
+        results[name] = {k: summary[k] for k in METRICS}
+        results[name]["timings"] = timings
+    return results
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
@@ -463,24 +720,32 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_entry, attn_times = phase_attention(gen)
     mel_entry = phase_mel(gen)
+    # kernel 3 draws from its own generator, so the later phases see the
+    # same inputs as before it was added
+    se_gen = torch.Generator(device="cuda").manual_seed(3)
+    se_entry, se_detail = phase_se_stage(se_gen)
+    counts = {"fused_attention": 0, "mel": 0, "se_stage": 0}
+    for precision in ("float32", "bfloat16"):
+        phase_se_path(precision, se_gen, counts)
     phase_demo(args.out)
-    counts = {"fused_attention": 0, "mel": 0}
     serving = [phase_serving(p, gen, card, counts, args.profile)
                for p in ("float32", "bfloat16")]
-    attn_entry["launches"] = counts["fused_attention"]
-    mel_entry["launches"] = counts["mel"]
-    for e in (attn_entry, mel_entry):
+    evals = phase_eval(card, counts, args.out)
+    entries = (attn_entry, mel_entry, se_entry)
+    for e in entries:
+        e["launches"] = counts[e["name"]]
         if e["launches"] < 1:
             raise SystemExit(f"{e['name']}: not launched on the main path")
 
-    detail = {"card": card, "serving": serving,
+    detail = {"card": card, "serving": serving, "eval": evals,
+              "se_stage": se_detail,
               "attention_cases_ms": {k: {"kernel": v[0], "plain": v[1],
                                          "library": v[2]}
                                      for k, v in attn_times.items()}}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     log(json.dumps({"serving": serving}))
     log(card)
-    log(json.dumps({"kernels": [attn_entry, mel_entry]}))
+    log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

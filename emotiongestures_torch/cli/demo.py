@@ -9,7 +9,8 @@ takes the hand-written CUDA mel kernel (the name of the JAX demo's Pallas
 frontend), `xla` the plain PyTorch mel. Each diverse sample is its own
 batch-one forward, as the JAX demo's vmap over keys makes it: TMMemory mixes
 the rows of a batch, so stacking the samples would change them. Checkpoints
-are state_dict files in the reference PyTorch layout (`torch.save`).
+are state_dict files in the reference PyTorch layout (`torch.save`), read by
+`utils.weights.load_reference_checkpoint`.
 
 Run from the command line with `--precision float32` on the card, the demo
 turns TF32 off for its process (`core.device.fp32_exact_on_cuda`) so that the
@@ -34,7 +35,7 @@ from ..models.cvae import EmotionCVAEv3
 from ..models.generator import GestureTransformer
 from ..ops.fused_mel import extract_melspectrogram
 from ..ops.mel import calc_spectrogram_length_from_motion_length
-from ..utils.weights import load_reference_state
+from ..utils.weights import load_reference_checkpoint
 
 
 def build_parser():
@@ -114,12 +115,10 @@ def main(args=None, noise=None):
                              spec_len=spec_len, device=device)
     vae = EmotionCVAEv3(device=device)
     if args.checkpoints_folder_path:
-        load_reference_state(gen, torch.load(args.checkpoints_folder_path,
-                                              map_location=device))
+        load_reference_checkpoint(gen, args.checkpoints_folder_path)
         logging.info("loaded generator checkpoint")
     if args.cvae_checkpoint:
-        load_reference_state(vae, torch.load(args.cvae_checkpoint,
-                                             map_location=device))
+        load_reference_checkpoint(vae, args.cvae_checkpoint)
         logging.info("loaded CVAE checkpoint")
     if not (args.checkpoints_folder_path or args.cvae_checkpoint):
         logging.warning("no checkpoints given — random weights (pipeline "

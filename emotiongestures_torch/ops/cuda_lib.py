@@ -25,7 +25,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("attention", "mel")
+SOURCES = ("attention", "mel", "se_stage")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +35,7 @@ SIGNATURES = {
     "attention": ("eg_attention", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "mel": ("eg_mel", [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "se_stage": ("eg_se_stage", [_P, _I] + [_P] * 15 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,8 @@ filterbank. This module holds the host-side pieces (filterbank, window, DFT
 matrices, padding, power_to_db, lengths); `ops/fused_mel.py` holds the
 power mel itself: the CUDA kernel and its plain matmul-DFT version (frames
 @ cos, frames @ -sin, power, @ filterbank), the counterpart of the JAX
-package's `melspectrogram_mxu`.
+package's `melspectrogram_mxu`. The fp64 numpy oracle (`_melspectrogram_np`,
+`_power_to_db_np`, framing) is copied for the host data and the beat metric.
 """
 from __future__ import annotations
 
@@ -82,6 +83,38 @@ def dft_matrices(n_fft: int = N_FFT):
     k = np.arange(n_bins)[None, :]
     ang = 2.0 * np.pi * t * k / n_fft
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+def _frame_np(y: np.ndarray, n_fft: int, hop: int, center: bool,
+              pad_mode: str) -> np.ndarray:
+    if center:
+        y = np.pad(y, n_fft // 2, mode=pad_mode)
+    n_frames = 1 + (len(y) - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    return y[idx]
+
+
+def _melspectrogram_np(y: np.ndarray, sr: int = SR, n_fft: int = N_FFT,
+                       hop: int = HOP, n_mels: int = N_MELS,
+                       center: bool = True,
+                       pad_mode: str = "reflect") -> np.ndarray:
+    """The fp64 numpy power mel of one wave, (n_mels, n_frames): the host
+    path of the synthetic dataset and of the beat metric."""
+    frames = _frame_np(np.asarray(y, np.float64), n_fft, hop, center,
+                       pad_mode)
+    spec = np.fft.rfft(frames * hann_periodic(n_fft), axis=-1)
+    power = np.abs(spec) ** 2  # (T, n_bins)
+    return mel_filterbank(sr, n_fft, n_mels) @ power.T
+
+
+def _power_to_db_np(S, ref=None, amin=1e-10, top_db=80.0):
+    S = np.asarray(S, dtype=np.float64)
+    ref_value = np.max(S) if ref is None else ref
+    log_spec = 10.0 * np.log10(np.maximum(amin, S))
+    log_spec -= 10.0 * np.log10(np.maximum(amin, ref_value))
+    if top_db is not None:
+        log_spec = np.maximum(log_spec, log_spec.max() - top_db)
+    return log_spec
 
 
 def pad_center(waves: torch.Tensor, n_fft: int = N_FFT,

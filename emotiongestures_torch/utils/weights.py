@@ -1,15 +1,17 @@
 """Weights carried across from the JAX package.
 
-`generator_state_from_jax(variables)` and `cvae_v3_state_from_jax(variables)`
-take the JAX `{"params": ..., "batch_stats": ...}` trees (nested mappings of
-arrays; anything `np.asarray` reads) and return state_dicts in the reference
-PyTorch layout, which is the port's own, so `load_state_dict(strict=True)`
-checks the structure.
+`generator_state_from_jax`, `cvae_v3_state_from_jax`, `fgd_ae_state_from_jax`
+and `skeleton_classifier_state_from_jax` take the JAX `{"params": ...,
+"batch_stats": ...}` trees (nested mappings of arrays; anything `np.asarray`
+reads) and return state_dicts in the reference PyTorch layout, which is the
+port's own, so `load_state_dict(strict=True)` checks the structure.
+`load_reference_checkpoint` reads such a state_dict from a `.pth` file.
 
 A declarative (torch_key, jax_path, kind) table drives it. This is the
 port's own copy of the tables of emotiongestures_tpu/utils/torch_port.py
-(generator_mapping, cvae_v3_mapping, flax_table_to_torch_state); a test holds
-the two copies to the same keys and arrays. Layout kinds:
+(generator_mapping, cvae_v3_mapping, fgd_ae_mapping,
+skeleton_classifier_mapping, flax_table_to_torch_state); a test holds the two
+copies to the same keys and arrays. Layout kinds:
   dense    jax (in, out)          -> torch (out, in)
   conv2d   jax (kh, kw, in, out)  -> torch (out, in, kh, kw)
   conv1d   jax (k, in, out)       -> torch (out, in, k)
@@ -21,6 +23,9 @@ the two copies to the same keys and arrays. Layout kinds:
   raw      the same layout
 """
 from __future__ import annotations
+
+import pickle
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -204,6 +209,27 @@ def cvae_v3_table():
     return t
 
 
+def fgd_ae_table():
+    """The table for FGDAutoEncoder (model/FGD.py:26-82): Encoder/Decoder
+    Sequentials with Dropout at the odd indices."""
+    t = []
+    seq_linears(t, "Encoder", (), ("enc_fc1", "enc_fc2", "enc_fc3"))
+    seq_linears(t, "Decoder", (), ("dec_fc1", "dec_fc2", "dec_fc3"))
+    return t
+
+
+def skeleton_classifier_table(n_layers: int = 3):
+    """The table for SkeletonTransformer (skeleton_classifer/Models.py:
+    199-283)."""
+    t = []
+    linear(t, "prior_seq_encoder.fc1", ("prior_fc1",))
+    linear(t, "prior_seq_encoder.fc2", ("prior_fc2",))
+    seq_linears(t, "post_projector", (),
+                ("post_fc1", "post_fc2", "post_fc3", "post_fc4", "post_fc5"))
+    transformer_layers(t, "encoder", ("encoder",), n_layers, "slf_attn")
+    return t
+
+
 def _get(tree, path):
     for key in path:
         tree = tree[key]
@@ -232,6 +258,14 @@ def cvae_v3_state_from_jax(variables) -> dict:
     return state_from_table(variables, cvae_v3_table())
 
 
+def fgd_ae_state_from_jax(variables) -> dict:
+    return state_from_table(variables, fgd_ae_table())
+
+
+def skeleton_classifier_state_from_jax(variables, n_layers: int = 3) -> dict:
+    return state_from_table(variables, skeleton_classifier_table(n_layers))
+
+
 def load_reference_state(module, state: dict) -> None:
     """Load a reference-layout state_dict (a .pth of the reference or of
     this port): DataParallel `module.` prefixes are stripped, and the
@@ -246,3 +280,32 @@ def load_reference_state(module, state: dict) -> None:
         raise KeyError(f"checkpoint lacks {len(missing)} keys, e.g. "
                        f"{missing[:5]}")
     module.load_state_dict({k: state[k] for k in own}, strict=True)
+
+
+def load_reference_checkpoint(module, path, allow_pickle: bool = False):
+    """Load a reference-layout `.pth` file into `module`: a plain state_dict,
+    or the reference's rich dict whose `gen_dict` holds it
+    (utils/train_utils.py:168-213), through `load_reference_state`.
+
+    Tensors-only loading (`weights_only=True`) is the rule; a file that
+    pickles other objects loads only with `allow_pickle=True`, since
+    unpickling runs code from the file. A directory is the JAX package's
+    orbax format, which the port does not read."""
+    p = Path(path)
+    if p.is_dir():
+        raise ValueError(
+            f"{p} is a directory: orbax checkpoints of the JAX package are "
+            "not read by the PyTorch port; give a reference-layout .pth "
+            "state_dict file")
+    try:
+        raw = torch.load(p, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as exc:
+        if not allow_pickle:
+            raise RuntimeError(
+                f"{p} is not loadable as a tensors-only checkpoint (it "
+                "pickles other objects); unpickling runs code from the file, "
+                "so pass --allow_pickle only for a file you trust") from exc
+        raw = torch.load(p, map_location="cpu", weights_only=False)
+    if isinstance(raw, dict) and "gen_dict" in raw:
+        raw = raw["gen_dict"]
+    load_reference_state(module, raw)

@@ -60,7 +60,15 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is valid here")
     from emotiongestures_torch.cli import demo
+    from emotiongestures_torch.cli import (
+        test_emotion_gesture_diversity_iterative as eval_cli,
+    )
+    from emotiongestures_torch.eval.beat import batched_onset_frontend
     from emotiongestures_torch.models.cvae import EmotionCVAEv3
+    from emotiongestures_torch.models.fgd_ae import FGDAutoEncoder
+    from emotiongestures_torch.models.skeleton_classifier import (
+        SkeletonTransformer,
+    )
     from emotiongestures_torch.models.generator import GestureTransformer
     from emotiongestures_torch.ops.fused_mel import extract_melspectrogram
     from emotiongestures_torch.serving import GestureServer
@@ -71,6 +79,11 @@ def test_entry_points_default_to_cuda():
         lambda: GestureServer(),
         lambda: extract_melspectrogram(np.zeros(16000, np.float32)),
         lambda: demo.main(demo.build_parser().parse_args(["--out", "x"])),
+        lambda: FGDAutoEncoder(),
+        lambda: SkeletonTransformer(),
+        lambda: batched_onset_frontend(np.zeros((1, 16000), np.float32)),
+        lambda: eval_cli.main(eval_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--test_batch_size", "8"])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -80,19 +93,29 @@ def test_entry_points_default_to_cuda():
 def test_cpu_tensors_take_plain_versions():
     from emotiongestures_torch.ops import fused_attention as FA
     from emotiongestures_torch.ops import fused_mel as FM
+    from emotiongestures_torch.ops import fused_se_stage as FS
     from emotiongestures_torch.ops import mel as M
 
     g = torch.Generator().manual_seed(0)
     q = torch.randn(2, 60, 128, generator=g)
     ws = [torch.randn(128, 128, generator=g) / 12 for _ in range(4)]
     s, b = torch.ones(128), torch.zeros(128)
-    a0, m0 = FA.launches, FM.launches
+    a0, m0, s0 = FA.launches, FM.launches, FS.launches
     got = FA.fused_attention(q, q, *ws, s, b, n_head=4, d_k=32)
     assert torch.equal(got, FA.fused_attention_plain(q, q, *ws, s, b, 4, 32))
     padded = M.pad_center(torch.randn(2, 16000, generator=g))
     n = M.n_frames_of(padded.shape[-1])
     assert torch.equal(FM.mel_power(padded, n), FM.mel_power_plain(padded, n))
-    assert (FA.launches, FM.launches) == (a0, m0)
+    x = torch.relu(torch.randn(1, 4, 5, 128, generator=g))
+    ops = (torch.randn(2, 3, 3, 128, 128, generator=g) / 34,
+           torch.ones(2, 128), torch.zeros(2, 128),
+           torch.randn(2, 3, 3, 128, 128, generator=g) / 34,
+           torch.ones(2, 128), torch.zeros(2, 128),
+           torch.randn(2, 128, 16, generator=g) / 11, torch.zeros(2, 16),
+           torch.randn(2, 16, 128, generator=g) / 4, torch.zeros(2, 128))
+    assert torch.equal(FS.fused_se_stage(x, *ops),
+                       FS.fused_se_stage_plain(x, *ops))
+    assert (FA.launches, FM.launches, FS.launches) == (a0, m0, s0)
 
 
 def test_fused_routing_rule():

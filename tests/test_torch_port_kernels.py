@@ -233,3 +233,70 @@ def test_mel_kernel_matches_plain_on_card(clips, n):
     torch.cuda.synchronize()
     assert FM.launches == before + 1
     torch.testing.assert_close(got, ref, rtol=2e-3, atol=1e-3)
+
+
+def _se_operands(nb, g):
+    """Stacked operands of `nb` random SEBasicBlock(128, 128) with
+    BatchNorm affines and statistics off their init."""
+    from emotiongestures_torch.nn.resnet_se import SEBasicBlock
+    from emotiongestures_torch.ops import fused_se_stage as FS
+
+    torch.manual_seed(0)
+    blocks = [SEBasicBlock(128, 128).eval() for _ in range(nb)]
+    with torch.no_grad():
+        for blk in blocks:
+            for bn in (blk.bn1, blk.bn2):
+                bn.running_mean.normal_(0.0, 0.2, generator=g)
+                bn.running_var.uniform_(0.5, 1.5, generator=g)
+                bn.weight.normal_(1.0, 0.2, generator=g)
+    return FS.stage_params_from_module(blocks)
+
+
+# (B, H, W, blocks): the JAX test's shape, the serving tail's spatial shape
+# (32 x 31 = 992 pixels: a ragged last tile of 96), one block
+CARD_SE_CASES = [(4, 8, 9, 2), (2, 32, 31, 5), (3, 5, 7, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CARD_SE_CASES)
+def test_se_stage_kernel_matches_plain_on_card(dtype, case):
+    """fp32 at the tolerance of tests/test_pallas_se.py; bf16 at 8 bf16
+    steps of max |ref| (sums in another order can flip a rounding to bf16
+    that the next blocks carry on)."""
+    from emotiongestures_torch.core.device import fp32_exact_on_cuda
+    from emotiongestures_torch.ops import fused_se_stage as FS
+
+    _need_card()
+    fp32_exact_on_cuda()
+    B, H, W, nb = case
+    g = torch.Generator().manual_seed(1)
+    ops = [t.cuda() for t in _se_operands(nb, g)]
+    x = torch.relu(torch.randn(B, H, W, 128, generator=g)).cuda().to(dtype)
+    before = FS.launches
+    got = FS.fused_se_stage(x, *ops)
+    ref = FS.fused_se_stage_plain(x, *ops)
+    torch.cuda.synchronize()
+    assert FS.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    else:
+        limit = 8 * 2.0 ** -8 * ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+def test_se_stage_wrapper_rejects_what_the_kernel_does_not_take():
+    from emotiongestures_torch.ops import fused_se_stage as FS
+
+    _need_card()
+    g = torch.Generator().manual_seed(2)
+    ops = [t.cuda() for t in _se_operands(1, g)]
+    x = torch.randn(2, 4, 5, 128, generator=g).cuda()
+    before = FS.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        FS.fused_se_stage(x.permute(0, 2, 1, 3), *ops)
+    with pytest.raises(ValueError, match="dtype"):
+        FS.fused_se_stage(x.half(), *ops)
+    assert FS.launches == before

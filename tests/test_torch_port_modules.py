@@ -21,7 +21,9 @@ from emotiongestures_tpu.nn.transformer import (
 )
 from emotiongestures_tpu.utils.torch_port import (
     flax_cvae_v3_to_torch_state,
+    flax_fgd_ae_to_torch_state,
     flax_generator_to_torch_state,
+    flax_skeleton_classifier_to_torch_state,
 )
 from emotiongestures_torch.models.cvae import EmotionCVAEv3
 from emotiongestures_torch.nn.resnet_se import ResNetSE
@@ -173,7 +175,8 @@ def test_cvae_posterior_stats_match_jax(cvae_pair):
 
 def test_weight_tables_agree_with_jax_package():
     """The port's copy of the weight tables gives the same keys and arrays
-    as emotiongestures_tpu/utils/torch_port.py (generator and CVAE)."""
+    as emotiongestures_tpu/utils/torch_port.py (generator, CVAE, FGD
+    autoencoder, skeleton classifier)."""
     gen = JaxGen(n_words=16, d_model=64, d_inner=128, n_layers=2, n_head=2,
                  d_k=32, d_v=32)
     gv = gen.init(jax.random.PRNGKey(0), jnp.zeros((1, 128, 124)),
@@ -192,6 +195,24 @@ def test_weight_tables_agree_with_jax_package():
     assert list(ours) == list(theirs)
     for k in theirs:
         np.testing.assert_array_equal(ours[k].numpy(), np.asarray(theirs[k]))
+
+    from emotiongestures_tpu.models.fgd_ae import FGDAutoEncoder as JaxFGD
+    from emotiongestures_tpu.models.skeleton_classifier import (
+        SkeletonTransformer as JaxSkeleton,
+    )
+
+    pose = jnp.zeros((1, 60, 282))
+    fv = JaxFGD().init(jax.random.PRNGKey(3), pose)
+    sv = JaxSkeleton(d_model=64, d_inner=128, n_layers=2, n_head=2, d_k=32,
+                     d_v=32).init(jax.random.PRNGKey(4), pose)
+    pairs = [(W.fgd_ae_state_from_jax(fv), flax_fgd_ae_to_torch_state(fv)),
+             (W.skeleton_classifier_state_from_jax(sv, n_layers=2),
+              flax_skeleton_classifier_to_torch_state(sv, n_layers=2))]
+    for ours, theirs in pairs:
+        assert list(ours) == list(theirs)
+        for k in theirs:
+            np.testing.assert_array_equal(ours[k].numpy(),
+                                          np.asarray(theirs[k]))
 
 
 def test_xavier_reinit_all():
