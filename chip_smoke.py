@@ -11,11 +11,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      all started together;
   2. each hand-written kernel against its plain PyTorch version on the card
      at the serving shapes, with its tolerance; kernel, plain and library
-     times and the bound of the same work (2a attention, 2b mel, 2c the
-     fused SE-ResNet stage at the audio encoder's stage-3 tail shape, B 1024,
-     32 x 31, C 128, 5 blocks, in fp32 and bf16, with two faults planted in
-     its operands that the check must fail); then kernel 3's path: the
-     serving generator's layer3[0] output through
+     times and the bound of the same work (2a attention; 2b mel, the FFT
+     kernel, with two faults planted in its operands that the check must
+     fail; 2c the fused SE-ResNet stage at the audio encoder's stage-3 tail
+     shape, B 1024, 32 x 31, C 128, 5 blocks, in fp32 and bf16, with two
+     faults planted in its operands that the check must fail); then kernel
+     3's path: the serving generator's layer3[0] output through
      `stage_params_from_module(layer3[1:])` + the kernel, against those
      blocks on cuDNN, in fp32 and bf16;
   3. the demo entry point (`emotiongestures_torch.cli.demo.main`) with the
@@ -86,6 +87,7 @@ WAVE_SAMPLES = 64000  # 4 s at 16 kHz
 N_BATCHES = 3
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_pallas_attention.py
 MEL_TOL = dict(rtol=2e-3, atol=1e-3)   # tests/test_pallas_mel.py
+MEL_TILE = 8  # frames per block of the mel kernel (csrc/mel.cu kTile)
 # serving poses, fused attention vs the plain attention path, same weights
 # and noise: about ten times the largest reading on an H100 80GB HBM3 at
 # 700 W in four runs (8.3e-7 in fp32, 5.2e-6 in bf16, where the plain
@@ -223,6 +225,18 @@ def mel_library(waves, fb_t):
     return (spec.abs() ** 2).transpose(1, 2) @ fb_t
 
 
+def mel_faults(ops):
+    """Kernel operands with a planted fault: the largest weight of a
+    mid-band filter (mel 64) zeroed; one twiddle (W^100) conjugated."""
+    _, length, offset, _ = ops["bands"][64].tolist()
+    band_w = ops["band_w"].clone()
+    band_w[offset + int(ops["band_w"][offset:offset + length].argmax())] = 0
+    tw = ops["tw"].clone()
+    tw[100, 1] = -tw[100, 1]
+    return {"mel 64's largest weight zeroed": ("band_w", band_w),
+            "twiddle W^100 conjugated": ("tw", tw)}
+
+
 def phase_mel(gen):
     log("phase 2b: mel kernel vs plain")
     dev = torch.device("cuda")
@@ -235,41 +249,66 @@ def phase_mel(gen):
         got = FM.mel_power(padded, nf)
         ref = FM.mel_power_plain(padded, nf)
         torch.cuda.synchronize()
-        errs.append(check_close(f"{clips} clips x {nf} frames "
-                                f"({clips * nf} frames)", got, ref,
-                                **MEL_TOL))
-        if entry is None:
-            lib = mel_library(waves, fb_t)
-            check_close("  library yardstick (torch.stft) vs plain", lib,
-                        ref, **MEL_TOL)
-            k_ms = cuda_ms(lambda: FM.mel_power(padded, nf))
-            p_ms = cuda_ms(lambda: FM.mel_power_plain(padded, nf))
-            l_ms = cuda_ms(lambda: mel_library(waves, fb_t))
-            T = clips * nf
-            bins = M.N_FFT // 2 + 1
-            # the least work of the function, not of this kernel's design:
-            # window, a real FFT (~2.5 N log2 N), |X|^2, and the filterbank
-            # product over its nonzeros (each bin feeds at most two mels)
-            fb_nnz = int(np.count_nonzero(M.mel_filterbank()))
-            flops = T * (M.N_FFT + 2.5 * M.N_FFT * np.log2(M.N_FFT)
-                         + 3 * bins + 2 * fb_nnz)
-            consts = (M.N_FFT + fb_nnz) * 4
-            nbytes = padded.numel() * 4 + T * M.N_MELS * 4 + consts
-            b_ms, b_by = bound(flops, nbytes)
-            # what this kernel does instead: the DFT as two dense GEMMs and a
-            # dense filterbank GEMM, all fp32 FMA
-            design = 2 * T * M.N_FFT * bins * 2 + 2 * T * bins * M.N_MELS
-            log(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
-                f"{l_ms:.3f} ms; least work {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms ({b_by}); the "
-                f"kernel's DFT-as-GEMM does {design / 1e9:.1f} GFLOP, "
-                f"{design / FP32_PEAK * 1e3:.3f} ms at the fp32 peak")
-            entry = {"name": "mel", "route": "cuda",
-                     "source": "emotiongestures_torch/csrc/mel.cu",
-                     "replaces": "emotiongestures_tpu/ops/pallas_mel.py:52",
-                     "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
-                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": l_ms}
+        errs.append(check_close(f"{clips} clips x {nf} frames ({clips * nf} "
+                                f"frames)", got, ref, **MEL_TOL))
+        if entry is not None:
+            continue
+        ops = FM._operands(padded.device)  # the wrapper's own
+        for fault, (key, bad) in mel_faults(ops).items():
+            good, ops[key] = ops[key], bad
+            try:
+                got = FM.mel_power(padded, nf)
+                torch.cuda.synchronize()
+            finally:
+                ops[key] = good
+            err = (got - ref).abs().max().item()
+            caught = not torch.allclose(got, ref, **MEL_TOL)
+            log(f"    planted fault {fault}: max_abs_err {err:.3e}, "
+                f"{'caught' if caught else 'MISSED'}")
+            if not caught:
+                raise SystemExit(f"the mel check misses {fault}")
+        lib = mel_library(waves, fb_t)
+        check_close("  library yardstick (torch.stft) vs plain", lib, ref,
+                    **MEL_TOL)
+        k_ms = cuda_ms(lambda: FM.mel_power(padded, nf), iters=20)
+        p_ms = cuda_ms(lambda: FM.mel_power_plain(padded, nf))
+        l_ms = cuda_ms(lambda: mel_library(waves, fb_t), iters=20)
+        T = clips * nf
+        bins = M.N_FFT // 2 + 1
+        # the least work of the function, not of this kernel's design:
+        # window, a real FFT (~2.5 N log2 N), |X|^2, and the filterbank
+        # product over its nonzeros (each bin feeds at most two mels)
+        fb_nnz = int(np.count_nonzero(M.mel_filterbank()))
+        flops = T * (M.N_FFT + 2.5 * M.N_FFT * np.log2(M.N_FFT)
+                     + 3 * bins + 2 * fb_nnz)
+        consts = (M.N_FFT + fb_nnz) * 4
+        nbytes = padded.numel() * 4 + T * M.N_MELS * 4 + consts
+        b_ms, b_by = bound(flops, nbytes)
+        # what this kernel does per frame (csrc/mel.cu): the window; three
+        # radix-8 passes of 64 butterflies (56 flops each), twiddles in two
+        # of them (7 complex products, 6 flops each); the split step for
+        # 256 pairs (~30 flops each); the band dot products. Its shared
+        # memory traffic per frame: the span stored once per tile, each pass
+        # reading and writing 512 complex values (pass 1 reads the span),
+        # the split reading 512 and writing 513 powers, the bands reading
+        # their 1,009 powers.
+        design = T * (M.N_FFT + 3 * 64 * 56 + 2 * 64 * 7 * 6 + 256 * 30
+                      + 2 * fb_nnz)
+        F = MEL_TILE
+        span = ((F - 1) * M.HOP + M.N_FFT) / F * 4
+        shared = T * (span + 3 * 2 * 512 * 8 + 512 * 8 + bins * 4
+                      + fb_nnz * 4)
+        log(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
+            f"{l_ms:.3f} ms; least work {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms ({b_by}); the "
+            f"kernel's FFT does {design / 1e9:.2f} GFLOP and moves "
+            f"{shared / 1e9:.2f} GB through shared memory")
+        entry = {"name": "mel", "route": "cuda",
+                 "source": "emotiongestures_torch/csrc/mel.cu",
+                 "replaces": "emotiongestures_tpu/ops/pallas_mel.py:52",
+                 "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
+                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": l_ms}
     entry["max_abs_err"] = max(errs)
     return entry
 
@@ -468,7 +507,7 @@ def requests(gen, n, dev):
 
 KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name), in order
     ("attention kernel (csrc/attention.cu)", ("mha_heads", "mha_out_ln")),
-    ("mel kernel (csrc/mel.cu)", ("mel_kernel",)),
+    ("mel kernel (csrc/mel.cu)", ("mel_fft_kernel",)),
     ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
     ("matmul (cuBLAS/CUTLASS)", ("gemm", "cutlass", "matmul")),
     ("elementwise and reductions", ("elementwise", "reduce", "softmax",

@@ -34,7 +34,7 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "attention": ("eg_attention", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "mel": ("eg_mel", [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "mel": ("eg_mel", [_P, _LL, _I, _I, _I] + [_P] * 7),
     "se_stage": ("eg_se_stage", [_P, _I] + [_P] * 15 + [_I] * 6 + [_P]),
 }
 

@@ -3,10 +3,14 @@ version, and the frontend functions built on them.
 
 Replaces the TPU kernel emotiongestures_tpu/ops/pallas_mel.py::_mel_kernel
 (driven there by melspectrogram_pallas, batched_melspectrogram_pallas and
-extract_melspectrogram_pallas). What bounds it on an H100 and how the kernel
-is laid out is in the header of `csrc/mel.cu`: the function is bound by
-memory (~0.1 ms at the serving batch of 1024 four-second clips), while this
-design's DFT-as-GEMM does ~288 GFLOP of fp32 FMA, ~4.3 ms at the fp32 peak.
+extract_melspectrogram_pallas). The function is bound by memory on an H100
+(~0.1 ms at the serving batch of 1024 four-second clips: 0.27 GB of padded
+waves in, 0.07 GB of mel out). The kernel computes it with a real FFT in
+shared memory (a 512-point complex FFT in three radix-8 passes and a split
+step) and a banded filterbank, one block per tile of 8 frames of one clip;
+the header of `csrc/mel.cu` gives the design. The TPU kernel's DFT as
+two dense GEMMs stays only in the plain version, the counterpart of the JAX
+package's `melspectrogram_mxu`.
 
 `mel_power` is the wrapper: for a CPU tensor it takes `mel_power_plain`; for
 a CUDA tensor it launches the kernel or raises. `launches` counts the
@@ -21,9 +25,10 @@ import torch
 
 from ..core.device import resolve_device
 from . import cuda_lib
-from .mel import (HOP, N_FFT, N_MELS, SR, batched_power_to_db, dft_matrices,
+from .mel import (HOP, N_FFT, N_MELS, SR, banded_filterbank,
+                  batched_power_to_db, dft_matrices, fft_twiddles,
                   hann_periodic, mel_filterbank, n_frames_of, pad_center,
-                  power_to_db)
+                  power_to_db, stockham_twiddles)
 
 launches = 0
 
@@ -31,24 +36,25 @@ _consts: dict = {}
 
 
 def _operands(device: torch.device):
-    """Window, DFT matrices and transposed filterbank on `device`, fp32."""
+    """Constants on `device`: the window; for the plain version the DFT
+    matrices and the transposed filterbank; for the kernel the twiddle
+    tables and the banded filterbank."""
     key = str(device)
     if key not in _consts:
         cos_m, sin_m = dft_matrices(N_FFT)
         fb = mel_filterbank(SR, N_FFT, N_MELS).T.astype(np.float32)
+        bands, band_w = banded_filterbank(fb)
         t = {
             "win": torch.tensor(hann_periodic(N_FFT).astype(np.float32)),
             "cos": torch.from_numpy(cos_m),
             "sin": torch.from_numpy(sin_m),
             "fb": torch.from_numpy(np.ascontiguousarray(fb)),
+            "tw": torch.from_numpy(fft_twiddles(N_FFT)),
+            "ptw": torch.from_numpy(stockham_twiddles()),
+            "bands": torch.from_numpy(bands),
+            "band_w": torch.from_numpy(band_w),
         }
-        t = {k: v.to(device) for k, v in t.items()}
-        # the kernel's layout: bins 0..511 as (1024, 512), bin 512 apart
-        t["cos_main"] = t["cos"][:, :-1].contiguous()
-        t["sin_main"] = t["sin"][:, :-1].contiguous()
-        t["cos_nyq"] = t["cos"][:, -1].contiguous()
-        t["sin_nyq"] = t["sin"][:, -1].contiguous()
-        _consts[key] = t
+        _consts[key] = {k: v.to(device) for k, v in t.items()}
     return _consts[key]
 
 
@@ -79,26 +85,24 @@ def mel_power(padded: torch.Tensor, n_frames: int,
     if n_frames < 1 or (n_frames - 1) * hop + N_FFT > S:
         raise ValueError(f"mel_power: {n_frames} frames of {N_FFT} at hop "
                          f"{hop} do not fit in {S} samples")
-    if hop % 4:
-        raise ValueError("mel_power: the kernel takes a hop that is a "
-                         "multiple of 4")
+    if hop < 4 or hop > N_FFT or hop % 4:
+        raise ValueError(f"mel_power: the kernel takes a hop that is a "
+                         f"multiple of 4 from 4 to {N_FFT}, got {hop}")
     if not padded.is_contiguous() or S % 4 or padded.data_ptr() % 16:
         # rows of the kernel's input start 16-byte aligned
         buf = torch.zeros(B, (S + 3) // 4 * 4, device=padded.device)
         buf[:, :S] = padded
         padded = buf
     ops = _operands(padded.device)
-    total = B * n_frames
-    out = torch.empty(total, N_MELS, device=padded.device)
+    out = torch.empty(B * n_frames, N_MELS, device=padded.device)
     lib = cuda_lib.load("mel")
     stream = torch.cuda.current_stream(padded.device).cuda_stream
     p = ctypes.c_void_p
     code = lib.eg_mel(
-        p(padded.data_ptr()), padded.stride(0), n_frames, hop, total,
-        p(ops["win"].data_ptr()), p(ops["cos_main"].data_ptr()),
-        p(ops["sin_main"].data_ptr()), p(ops["cos_nyq"].data_ptr()),
-        p(ops["sin_nyq"].data_ptr()), p(ops["fb"].data_ptr()),
-        p(out.data_ptr()), p(stream))
+        p(padded.data_ptr()), padded.stride(0), B, n_frames, hop,
+        p(ops["win"].data_ptr()), p(ops["tw"].data_ptr()),
+        p(ops["ptw"].data_ptr()), p(ops["bands"].data_ptr()),
+        p(ops["band_w"].data_ptr()), p(out.data_ptr()), p(stream))
     cuda_lib.check_launch(code, "mel kernel")
     launches += 1
     return out.view(B, n_frames, N_MELS)

@@ -6,11 +6,12 @@ The port of emotiongestures_tpu/ops/mel.py: the reference computes
     log_melspec = librosa.power_to_db(melspec, ref=np.max).astype(float16)
 with a periodic Hann window, center=True reflect padding and the Slaney
 filterbank. This module holds the host-side pieces (filterbank, window, DFT
-matrices, padding, power_to_db, lengths); `ops/fused_mel.py` holds the
-power mel itself: the CUDA kernel and its plain matmul-DFT version (frames
-@ cos, frames @ -sin, power, @ filterbank), the counterpart of the JAX
-package's `melspectrogram_mxu`. The fp64 numpy oracle (`_melspectrogram_np`,
-`_power_to_db_np`, framing) is copied for the host data and the beat metric.
+matrices, the CUDA kernel's twiddle and band tables, padding, power_to_db,
+lengths); `ops/fused_mel.py` holds the power mel itself: the CUDA kernel
+and its plain matmul-DFT version (frames @ cos, frames @ -sin, power,
+@ filterbank), the counterpart of the JAX package's `melspectrogram_mxu`.
+The fp64 numpy oracle (`_melspectrogram_np`, `_power_to_db_np`, framing) is
+copied for the host data and the beat metric.
 """
 from __future__ import annotations
 
@@ -83,6 +84,44 @@ def dft_matrices(n_fft: int = N_FFT):
     k = np.arange(n_bins)[None, :]
     ang = 2.0 * np.pi * t * k / n_fft
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+def fft_twiddles(n_fft: int = N_FFT) -> np.ndarray:
+    """(n_fft / 4, 2) float32 table of exp(-2 pi i k / n_fft), k < n_fft / 4,
+    computed in float64: the twiddles of the CUDA mel kernel's split step,
+    which takes the bins in pairs (k, n_fft / 2 - k)."""
+    ang = 2.0 * np.pi * np.arange(n_fft // 4) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def stockham_twiddles() -> np.ndarray:
+    """(2, 7, 64, 2) float32: the twiddles of the second and third radix-8
+    Stockham passes of the CUDA mel kernel's 512-point complex FFT,
+    [p, r - 1, j] = exp(-2 pi i (j % Ns) r / (8 Ns)) with Ns = 8, 64,
+    computed in float64."""
+    j = np.arange(64)[None, :]
+    r = np.arange(1, 8)[:, None]
+    ang = np.stack([2.0 * np.pi * (j % ns) * r / (8 * ns) for ns in (8, 64)])
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def banded_filterbank(fb_t: np.ndarray):
+    """The (n_bins, n_mels) filterbank as bands for the CUDA mel kernel:
+    `bands` (n_mels, 4) int32 rows of (first bin, length, offset into
+    `weights`, 0) and the packed float32 `weights`. Each filter's nonzeros
+    must be one contiguous run of bins."""
+    fb_t = np.asarray(fb_t, np.float32)
+    bands, weights = [], []
+    offset = 0
+    for m in range(fb_t.shape[1]):
+        nz = np.flatnonzero(fb_t[:, m])
+        if nz.size == 0 or nz[-1] - nz[0] + 1 != nz.size:
+            raise ValueError(f"filter {m} is not one contiguous run of bins")
+        bands.append((nz[0], nz.size, offset, 0))
+        weights.append(fb_t[nz, m])
+        offset += nz.size
+    return (np.asarray(bands, np.int32),
+            np.concatenate(weights).astype(np.float32))
 
 
 def _frame_np(y: np.ndarray, n_fft: int, hop: int, center: bool,

@@ -219,20 +219,45 @@ def test_attention_wrapper_rejects_bf16_keys_on_card():
     assert FA.launches == before
 
 
+# (clips, samples, hop): the serving clip length; frame counts that leave a
+# ragged last tile of the kernel's 8 frames (49; 45); one clip shorter than
+# a tile (6 frames); one clip of exactly 8 and of exactly 16 frames; the
+# shortest and the longest hop the kernel takes beside 512; more clips than
+# the 65535 of a grid's y dimension
+CARD_MEL_CASES = [(16, 64000, 512), (7, 25000, 512), (5, 22528, 512),
+                  (1, 3000, 512), (1, 3584, 512), (1, 7680, 512),
+                  (3, 4000, 4), (3, 16000, 1024), (2, 9000, 256),
+                  (65537, 600, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("clips,n", [(16, 64000), (7, 25000)])
-def test_mel_kernel_matches_plain_on_card(clips, n):
+@pytest.mark.parametrize("clips,n,hop", CARD_MEL_CASES)
+def test_mel_kernel_matches_plain_on_card(clips, n, hop):
     _need_card()
     g = torch.Generator().manual_seed(0)
     waves = torch.randn(clips, n, generator=g).cuda()
     padded = TM.pad_center(waves)
-    nf = TM.n_frames_of(padded.shape[-1])
+    nf = TM.n_frames_of(padded.shape[-1], hop=hop)
     before = FM.launches
-    got = FM.mel_power(padded, nf)
-    ref = FM.mel_power_plain(padded, nf)
+    got = FM.mel_power(padded, nf, hop=hop)
+    ref = FM.mel_power_plain(padded, nf, hop=hop)
     torch.cuda.synchronize()
     assert FM.launches == before + 1
+    assert got.shape == (clips, nf, 128)
     torch.testing.assert_close(got, ref, rtol=2e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_mel_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    padded = TM.pad_center(torch.randn(2, 8000, device="cuda"))
+    before = FM.launches
+    for hop, match in ((1025, "hop"), (510, "hop"), (0, "hop")):
+        with pytest.raises(ValueError, match=match):
+            FM.mel_power(padded, 2, hop=hop)
+    with pytest.raises(ValueError, match="do not fit"):
+        FM.mel_power(padded, 40)
+    assert FM.launches == before
 
 
 def _se_operands(nb, g):
