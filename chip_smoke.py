@@ -11,12 +11,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      all started together;
   2. each hand-written kernel against its plain PyTorch version on the card
      at the serving shapes, with its tolerance; kernel, plain and library
-     times and the bound of the same work (2a attention; 2b mel, the FFT
-     kernel, with two faults planted in its operands that the check must
-     fail; 2c the fused SE-ResNet stage at the audio encoder's stage-3 tail
-     shape, B 1024, 32 x 31, C 128, 5 blocks, in fp32 and bf16, with two
-     faults planted in its operands that the check must fail); then kernel
-     3's path: the serving generator's layer3[0] output through
+     times and the bound of the same work (2a attention in five cases, with
+     the least time of its fp32-accurate products on the tensor cores
+     beside that of plain fp32 FMA, and two precision faults planted in its
+     operands that the check must fail: fp32 weights rounded to TF32, fp32
+     activations rounded to TF32; 2b mel, the FFT kernel, with two faults
+     planted in its operands that the check must fail; 2c the fused
+     SE-ResNet stage at the audio encoder's stage-3 tail shape, B 1024,
+     32 x 31, C 128, 5 blocks, in fp32 and bf16, with two faults planted in
+     its operands that the check must fail); then kernel 3's path: the
+     serving generator's layer3[0] output through
      `stage_params_from_module(layer3[1:])` + the kernel, against those
      blocks on cuDNN, in fp32 and bf16;
   3. the demo entry point (`emotiongestures_torch.cli.demo.main`) with the
@@ -77,9 +81,10 @@ from emotiongestures_torch.serving import (  # noqa: E402
     set_fused_attention,
 )
 
-# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, bf16 on
-# the tensor cores, HBM3
+# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, TF32 and
+# bf16 on the tensor cores, HBM3
 FP32_PEAK = 67e12
+TF32_PEAK = 495e12
 BF16_PEAK = 989e12
 HBM_BYTES_PER_S = 3.35e12
 BATCH = 1024
@@ -89,9 +94,11 @@ ATTN_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_pallas_attention.py
 MEL_TOL = dict(rtol=2e-3, atol=1e-3)   # tests/test_pallas_mel.py
 MEL_TILE = 8  # frames per block of the mel kernel (csrc/mel.cu kTile)
 # serving poses, fused attention vs the plain attention path, same weights
-# and noise: about ten times the largest reading on an H100 80GB HBM3 at
-# 700 W in four runs (8.3e-7 in fp32, 5.2e-6 in bf16, where the plain
-# path's products of the bf16 decoder query and bf16 weights round to bf16)
+# and noise: about ten times the largest reading of the fp32-FMA attention
+# kernel on an H100 80GB HBM3 at 700 W in four runs (8.3e-7 in fp32, 5.2e-6
+# in bf16, where the plain path's products of the bf16 decoder query and
+# bf16 weights round to bf16); the tensor-core kernel's readings are in
+# PERF.md section 6
 POSE_TOL = {"float32": dict(rtol=0.0, atol=1e-5),
             "bfloat16": dict(rtol=0.0, atol=5e-5)}
 
@@ -156,6 +163,76 @@ def attention_library(q_in, kv_in, wq, wk, wv, wo, s, b, n_head, d_k):
     return F.layer_norm(o, (D,), s.to(f), b.to(f), eps=1e-6)
 
 
+def tf32_round(x):
+    """fp32 -> the nearest TF32 value (ties away from zero), as fp32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def exact_ms(flops: float, n_fp32: int) -> float:
+    """Least ms on the tensor cores for `flops` of products with `n_fp32`
+    (0, 1 or 2) fp32 operands at fp32 accuracy: a fp32 operand is three
+    bf16 terms or two TF32 terms, a bf16 one a single term of either, so a
+    product takes 1, 3 or 6 bf16 passes at 989 TFLOP/s, or 1, 2 or 3 TF32
+    passes at 495, whichever is less."""
+    return flops * min((1, 3, 6)[n_fp32] / BF16_PEAK,
+                       (1, 2, 3)[n_fp32] / TF32_PEAK) * 1e3
+
+
+def attention_work(q, kv, w, n_head, d_k):
+    """The sublayer's work at these inputs: FLOP, bytes (each input read
+    once, the output written once) and the bound: max(the least time of its
+    products on the tensor cores at fp32 accuracy (`exact_ms`; the context
+    and the core's Q, K, V and P are fp32), bytes / 3.35 TB/s). Beside it,
+    for the log and result.json: the same work in plain fp32 FMA at 67
+    TFLOP/s, and the TF32 FLOP of this kernel's own recipe
+    (csrc/attention.cu: a fp32 operand costs a second pass, a second fp32
+    operand a third; the core is 3xTF32) at 495 TFLOP/s."""
+    B, Lq, D = q.shape
+    Lk = kv.shape[1]
+    HD = n_head * d_k
+    self_attn = kv.data_ptr() == q.data_ptr()
+    fp32 = lambda t: int(t.dtype == torch.float32)
+    n_q, n_kv, n_w = fp32(q), fp32(kv), fp32(w[0])
+
+    proj_q = 2 * B * Lq * D * HD
+    proj_kv = 2 * 2 * B * Lk * D * HD
+    proj_o = 2 * B * Lq * HD * D  # over the fp32 context
+    core = 2 * 2 * B * n_head * Lq * Lk * d_k
+    flops = proj_q + proj_kv + proj_o + core
+    tc_ms = (exact_ms(proj_q, n_q + n_w) + exact_ms(proj_kv, n_kv + n_w)
+             + exact_ms(proj_o, 1 + n_w) + exact_ms(core, 2))
+    nbytes = (q.numel() * q.element_size()
+              + (0 if self_attn else kv.numel() * kv.element_size())
+              + sum(t.numel() * t.element_size() for t in w)
+              + B * Lq * D * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    design = (proj_q * (1 + n_q + n_w) + proj_kv * (1 + n_kv + n_w)
+              + proj_o * (2 + n_w) + 3 * core)
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(tc_ms, bytes_ms),
+            "bound_by": "operations" if tc_ms >= bytes_ms else "bytes",
+            "bound_fp32_fma_ms": bound(flops, nbytes)[0],
+            "design_tf32_flops": design,
+            "design_tf32_ms": design / TF32_PEAK * 1e3}
+
+
+def precision_faults(cases):
+    """Operands with a planted precision fault, each compared with the plain
+    version on the unrounded operands: the four weights rounded to TF32 in
+    fp32 self-attention (a kernel that took fp32 weights as TF32), and the
+    activations rounded to TF32 in the timed case (one that split nothing)."""
+    q, kv, *w = cases["self 60x60 fp32"]
+    bad_w = [tf32_round(t) for t in w[:4]] + w[4:]
+    faults = {"self 60x60 fp32, weights rounded to TF32":
+              ("self 60x60 fp32", (q, kv, *bad_w))}
+    q, kv, *w = cases["self 60x60 act fp32, w bf16"]
+    bad_q = tf32_round(q)
+    faults["self 60x60 act fp32, w bf16, activations rounded to TF32"] = (
+        "self 60x60 act fp32, w bf16", (bad_q, bad_q, *w))
+    return faults
+
+
 def phase_attention(gen):
     log("phase 2a: fused attention kernel vs plain, B=1024, d_model 512")
     B, D, H, dk = BATCH, 512, 8, 64
@@ -182,39 +259,55 @@ def phase_attention(gen):
         "cross 60x60 fp32": make(60, 60, f32, f32, False),
         "cross 60x37 fp32": make(60, 37, f32, f32, False),
     }
-    errs, times = [], {}
+    errs, times, refs = [], {}, {}
     for name, args in cases.items():
         got = FA.fused_attention(*args, n_head=H, d_k=dk)
         ref = FA.fused_attention_plain(*args, n_head=H, d_k=dk)
         torch.cuda.synchronize()
         errs.append(check_close(name, got, ref, **ATTN_TOL))
-        times[name] = (
-            cuda_ms(lambda: FA.fused_attention(*args, n_head=H, d_k=dk)),
-            cuda_ms(lambda: FA.fused_attention_plain(*args, n_head=H,
-                                                     d_k=dk)),
-            cuda_ms(lambda: attention_library(*args, n_head=H, d_k=dk)))
-        log(f"    kernel {times[name][0]:.3f} ms, plain "
-            f"{times[name][1]:.3f} ms, library {times[name][2]:.3f} ms")
+        refs[name] = ref
+        work = attention_work(args[0], args[1], args[2:], H, dk)
+        times[name] = {
+            "kernel": cuda_ms(lambda: FA.fused_attention(*args, n_head=H,
+                                                         d_k=dk)),
+            "plain": cuda_ms(lambda: FA.fused_attention_plain(
+                *args, n_head=H, d_k=dk)),
+            "library": cuda_ms(lambda: attention_library(*args, n_head=H,
+                                                         d_k=dk)),
+            "max_abs_err": errs[-1], **work}
+        t = times[name]
+        log(f"    kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
+            f"library {t['library']:.3f} ms; {work['flops'] / 1e9:.1f} "
+            f"GFLOP, {work['bytes'] / 1e9:.3f} GB; bound "
+            f"{work['bound_ms']:.3f} ms ({work['bound_by']}, fp32-accurate "
+            f"products on the tensor cores), in plain fp32 FMA "
+            f"{work['bound_fp32_fma_ms']:.3f} ms; this kernel's TF32 passes "
+            f"{work['design_tf32_flops'] / 1e9:.1f} GFLOP, "
+            f"{work['design_tf32_ms']:.3f} ms at 495 TFLOP/s")
+    faults = {}
+    for fault, (base, args) in precision_faults(cases).items():
+        bad = FA.fused_attention(*args, n_head=H, d_k=dk)
+        ref = refs[base]
+        err = (bad - ref).abs().max().item()
+        caught = not torch.allclose(bad, ref, **ATTN_TOL)
+        faults[fault] = err
+        log(f"  planted fault {fault}: max_abs_err {err:.3e}, "
+            f"{'caught' if caught else 'MISSED'}")
+        if not caught:
+            raise SystemExit(f"the attention check misses {fault}")
 
     name = "self 60x60 act fp32, w bf16"
-    q, kv, *w = cases[name]
-    Lq = Lk = 60
-    HD = H * dk
-    flops = (2 * B * Lq * D * HD + 2 * 2 * B * Lk * D * HD
-             + 2 * B * Lq * HD * D + 2 * 2 * B * H * Lq * Lk * dk)
-    nbytes = (q.numel() * q.element_size()
-              + sum(t.numel() * t.element_size() for t in w)
-              + B * Lq * D * 4)
-    b_ms, b_by = bound(flops, nbytes)
-    k_ms, p_ms, l_ms = times[name]
-    log(f"  timed case '{name}': {flops / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms ({b_by})")
-    return {"name": "fused_attention", "route": "cuda",
-            "source": "emotiongestures_torch/csrc/attention.cu",
-            "replaces": "emotiongestures_tpu/ops/pallas_attention.py:35",
-            "launches": 0, "max_abs_err": max(errs), "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms}, times
+    t = times[name]
+    log(f"  timed case '{name}': kernel {t['kernel']:.3f} ms, library "
+        f"{t['library']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}; plain fp32 FMA {t['bound_fp32_fma_ms']:.3f} ms)")
+    entry = {"name": "fused_attention", "route": "cuda",
+             "source": "emotiongestures_torch/csrc/attention.cu",
+             "replaces": "emotiongestures_tpu/ops/pallas_attention.py:35",
+             "launches": 0, "max_abs_err": max(errs), "ms": t["kernel"],
+             "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library"]}
+    return entry, {"cases": times, "planted_faults": faults}
 
 
 def mel_library(waves, fb_t):
@@ -506,7 +599,8 @@ def requests(gen, n, dev):
 
 
 KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name), in order
-    ("attention kernel (csrc/attention.cu)", ("mha_heads", "mha_out_ln")),
+    ("attention kernel (csrc/attention.cu)", ("mha_qkv", "mha_core",
+                                              "mha_out_ln")),
     ("mel kernel (csrc/mel.cu)", ("mel_fft_kernel",)),
     ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
     ("matmul (cuBLAS/CUTLASS)", ("gemm", "cutlass", "matmul")),
@@ -546,8 +640,14 @@ def profile_batch(server, inputs, precision, card):
         log(f"    {ms:9.2f} ms  {100 * ms / busy:5.1f}%  {g}")
     for ms, n, name in sorted(top, reverse=True)[:12]:
         log(f"      {ms:8.2f} ms  x{n:<4d} {name}")
+    attn = [(ms, n, name) for ms, n, name in top
+            if any(k in name.lower() for k in KERNEL_GROUPS[0][1])]
+    log("    attention kernels:")
+    for ms, n, name in sorted(attn, reverse=True):
+        log(f"      {ms:8.2f} ms  x{n:<4d} {name}")
     return {"precision": precision, "wall_ms": wall_ms, "kernel_ms": busy,
-            "groups_ms": groups}
+            "groups_ms": groups,
+            "attention_kernels_ms": {name: ms for ms, _, name in attn}}
 
 
 def drop_last_head(q_in, kv_in, wq, wk, wv, wo, *rest, n_head, d_k):
@@ -757,7 +857,7 @@ def main(argv) -> int:
         (args.out / f"nvcc_{name}.log").write_text(text)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn_entry, attn_times = phase_attention(gen)
+    attn_entry, attn_detail = phase_attention(gen)
     mel_entry = phase_mel(gen)
     # kernel 3 draws from its own generator, so the later phases see the
     # same inputs as before it was added
@@ -778,9 +878,7 @@ def main(argv) -> int:
 
     detail = {"card": card, "serving": serving, "eval": evals,
               "se_stage": se_detail,
-              "attention_cases_ms": {k: {"kernel": v[0], "plain": v[1],
-                                         "library": v[2]}
-                                     for k, v in attn_times.items()}}
+              "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     log(json.dumps({"serving": serving}))
     log(card)

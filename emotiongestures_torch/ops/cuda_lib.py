@@ -5,13 +5,16 @@ library with a plain C interface and loaded with `ctypes`. The build happens
 at first use, into `emotiongestures_torch/_build/` (git-ignored), under a
 file name that carries a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. `build_all()`
-starts one `nvcc` per source, all at once.
+starts one `nvcc` per source, all at once. `build_variants()` builds edited
+copies of a source the same way, for tools that time or check a kernel with
+parts of it changed, and `using()` routes a wrapper to one of them.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module of the package on machines that have no `nvcc`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +36,7 @@ _LL = ctypes.c_longlong
 # argtypes per exported function; pointers and the stream as c_void_p
 SIGNATURES = {
     "attention": ("eg_attention", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "mel": ("eg_mel", [_P, _LL, _I, _I, _I] + [_P] * 7),
     "se_stage": ("eg_se_stage", [_P, _I] + [_P] * 15 + [_I] * 6 + [_P]),
 }
@@ -100,13 +103,66 @@ def load(name: str) -> ctypes.CDLL:
     build_all((name,))
     with _lock:
         if name not in _loaded:
-            lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = lib
+            _loaded[name] = _open(_target(name), name)
     return _loaded[name]
+
+
+def _open(path: Path, name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def edited_source(name: str, edits) -> str:
+    """`csrc/<name>.cu` with each (text, replacement) of `edits` applied;
+    each text must occur exactly once."""
+    text = (CSRC / f"{name}.cu").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"csrc/{name}.cu no longer holds {old!r} once")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(name: str, sources: dict[str, str],
+                   out: Path) -> dict[str, ctypes.CDLL]:
+    """Compile each variant's source text (a changed `csrc/<name>.cu`) into
+    `out`, one nvcc each, all at once, and load each library."""
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (variant, text) in enumerate(sources.items()):
+        src, lib = out / f"{name}_{i}.cu", out / f"lib{name}_{i}.so"
+        src.write_text(text)
+        procs[variant] = (lib, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for variant, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {variant!r} of "
+                               f"csrc/{name}.cu:\n{log}")
+        libs[variant] = _open(lib, name)
+    return libs
+
+
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL):
+    """Inside the block, `load(name)` returns `lib`."""
+    with _lock:
+        before = _loaded.get(name)
+        _loaded[name] = lib
+    try:
+        yield
+    finally:
+        with _lock:
+            if before is None:
+                _loaded.pop(name, None)
+            else:
+                _loaded[name] = before
 
 
 def check_launch(code: int, what: str) -> None:

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from emotiongestures_torch.ops import cuda_lib
 from emotiongestures_torch.ops import fused_attention as FA
 from emotiongestures_torch.ops import fused_mel as FM
 from emotiongestures_torch.ops import mel as TM
@@ -161,20 +162,53 @@ def test_spectrogram_length():
         JM.calc_spectrogram_length_from_motion_length(60, 15) == 124
 
 
+def test_edited_source_applies_each_edit_once():
+    """The breakdown tools' variants: an edit must find its text once."""
+    text = cuda_lib.edited_source("attention", [("kBK = 32;", "kBK = 16;")])
+    assert "kBK = 16;" in text and "kBK = 32;" not in text
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        cuda_lib.edited_source("attention", [("no such text", "")])
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        cuda_lib.edited_source("attention", [("mma_tf32(", "")])  # many
+
+
+def test_using_routes_load_and_restores():
+    variant, inner = object(), object()
+    before = dict(cuda_lib._loaded)
+    with cuda_lib.using("mel", variant):
+        assert cuda_lib.load("mel") is variant
+        with cuda_lib.using("mel", inner):
+            assert cuda_lib.load("mel") is inner
+        assert cuda_lib.load("mel") is variant
+    assert cuda_lib._loaded == before
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
 
 
-# (Lq, Lk, d_model, n_head, d_k, query dtype): the flagship widths, and the
-# other widths and lengths the wrapper takes
+# (Lq, Lk, d_model, n_head, d_k, query dtype, B): the flagship widths, and
+# the other widths and lengths the wrapper takes; then the edges of the
+# kernel's tiles (128 rows x 128 columns for Q/K/V, 64 rows for the output
+# projection): B*L of 60 and 180 rows (one partial row tile; a ragged last
+# one), Lq = 1 and Lk = 1, d_model 128 with H*d_k = 128 (one column tile),
+# and H*d_k = 96 (a partial column tile)
 CARD_ATTN_CASES = [
-    (60, 60, 512, 8, 64, torch.float32),
-    (60, 23, 512, 8, 64, torch.float32),
-    (60, 60, 512, 8, 64, torch.bfloat16),
-    (17, 60, 128, 4, 32, torch.float32),
-    (60, 41, 256, 2, 64, torch.bfloat16),
-    (33, 33, 384, 12, 32, torch.float32),
+    (60, 60, 512, 8, 64, torch.float32, 64),
+    (60, 23, 512, 8, 64, torch.float32, 64),
+    (60, 60, 512, 8, 64, torch.bfloat16, 64),
+    (17, 60, 128, 4, 32, torch.float32, 64),
+    (60, 41, 256, 2, 64, torch.bfloat16, 64),
+    (33, 33, 384, 12, 32, torch.float32, 64),
+    (60, 60, 512, 8, 64, torch.float32, 1),
+    (60, 60, 512, 8, 64, torch.float32, 3),
+    (60, 60, 512, 8, 64, torch.bfloat16, 3),
+    (1, 60, 512, 8, 64, torch.float32, 3),
+    (60, 1, 512, 8, 64, torch.float32, 3),
+    (1, 1, 512, 8, 64, torch.bfloat16, 5),
+    (60, 60, 128, 2, 64, torch.float32, 3),
+    (20, 37, 128, 3, 32, torch.float32, 7),
 ]
 
 
@@ -183,9 +217,8 @@ CARD_ATTN_CASES = [
 @pytest.mark.parametrize("case", CARD_ATTN_CASES)
 def test_attention_kernel_matches_plain_on_card(wdtype, case):
     _need_card()
-    Lq, Lk, D, H, dk, qdtype = case
+    Lq, Lk, D, H, dk, qdtype, B = case
     g = torch.Generator().manual_seed(0)
-    B = 64
     dev = torch.device("cuda")
     q = torch.randn(B, Lq, D, generator=g).to(dev, qdtype)
     kv = torch.randn(B, Lk, D, generator=g).to(dev)

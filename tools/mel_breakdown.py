@@ -18,7 +18,6 @@ in the kernel fails the script.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -43,41 +42,6 @@ EDITS = {  # variant: (text, replacement)
     "without both": [(PASSES, ""),
                      (BAND_LOOP, "for (int q = 0; q < 0; ++q) {")],
 }
-
-
-def variant_source(text: str, edits) -> str:
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"mel_breakdown: csrc/mel.cu no longer holds "
-                             f"{old!r} once")
-        text = text.replace(old, new)
-    return text
-
-
-def build(out: Path) -> dict:
-    text = (cuda_lib.CSRC / "mel.cu").read_text()
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(EDITS.items()):
-        src = out / f"mel_{i}.cu"
-        src.write_text(variant_source(text, edits))
-        lib = out / f"libmel_{i}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    fn_name, argtypes = cuda_lib.SIGNATURES["mel"]
-    for name, (path, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for variant {name!r}:\n{log}")
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -108,7 +72,9 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    libs = build(args.out)
+    libs = cuda_lib.build_variants(
+        "mel", {name: cuda_lib.edited_source("mel", edits)
+                for name, edits in EDITS.items()}, args.out)
     gen = torch.Generator(device="cuda").manual_seed(0)
     waves = torch.randn(args.clips, args.samples, generator=gen,
                         device="cuda")
@@ -116,10 +82,8 @@ def main(argv) -> int:
     nf = M.n_frames_of(padded.shape[-1])
     ref = FM.mel_power_plain(padded, nf)
     times = {}
-    try:
-        for name, lib in libs.items():
-            # the wrapper loads its library through this table
-            cuda_lib._loaded["mel"] = lib
+    for name, lib in libs.items():
+        with cuda_lib.using("mel", lib):
             if name == "full":
                 got = FM.mel_power(padded, nf)
                 torch.cuda.synchronize()
@@ -128,9 +92,7 @@ def main(argv) -> int:
                                      "its plain version")
             times[name] = cuda_ms(lambda: FM.mel_power(padded, nf),
                                   args.iters)
-            print(f"{name}: {times[name]:.4f} ms", flush=True)
-    finally:
-        cuda_lib._loaded.pop("mel", None)
+        print(f"{name}: {times[name]:.4f} ms", flush=True)
     print(json.dumps({"card": card, "clips": args.clips,
                       "frames": args.clips * nf, "ms": times}))
     return 0
