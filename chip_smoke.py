@@ -517,6 +517,13 @@ def phase_se_stage(gen):
         detail[precision] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                              "bound_ms": b_ms, "bound_by": b_by,
                              "max_abs_err": errs[-1]}
+        if precision == "bfloat16":
+            R, n = FS.cluster_layout(H, W)
+            clusters = FS.active_clusters(H, W)
+            log(f"    one launch per stage: clusters of {n} CTAs x {R} rows, "
+                f"{clusters} resident at once "
+                f"(cudaOccupancyMaxActiveClusters)")
+            detail[precision]["active_clusters"] = clusters
         if entry is None:
             entry = {"name": "se_stage", "route": "cuda",
                      "source": "emotiongestures_torch/csrc/se_stage.cu",

@@ -33,12 +33,15 @@ SOURCES = ("attention", "mel", "se_stage")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# argtypes per exported function; pointers and the stream as c_void_p
+# argtypes of each exported function, per source; pointers and the stream
+# as c_void_p
 SIGNATURES = {
-    "attention": ("eg_attention", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "mel": ("eg_mel", [_P, _LL, _I, _I, _I] + [_P] * 7),
-    "se_stage": ("eg_se_stage", [_P, _I] + [_P] * 15 + [_I] * 6 + [_P]),
+    "attention": [("eg_attention", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])],
+    "mel": [("eg_mel", [_P, _LL, _I, _I, _I] + [_P] * 7)],
+    "se_stage": [("eg_se_stage_fp32", [_P] * 16 + [_I] * 5 + [_P]),
+                 ("eg_se_stage_bf16", [_P] * 11 + [_I] * 5 + [_P]),
+                 ("eg_se_active_clusters", [_I, _I, _I])],
 }
 
 _lock = threading.Lock()
@@ -109,10 +112,10 @@ def load(name: str) -> ctypes.CDLL:
 
 def _open(path: Path, name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -1,5 +1,5 @@
-"""Fused SE-ResNet stage: the CUDA kernel `csrc/se_stage.cu` and its plain
-PyTorch version.
+"""Fused SE-ResNet stage: the CUDA kernels of `csrc/se_stage.cu` and their
+plain PyTorch version.
 
 Replaces the TPU kernel emotiongestures_tpu/ops/pallas_se_block.py::
 _stage_kernel (driven there by fused_se_stage, with the helpers fold_bn and
@@ -26,9 +26,14 @@ not call this one either: the audio encoder's stage-3 tail runs on cuDNN.
 so the kernel can be held against them.
 
 `fused_se_stage` is the wrapper: a CPU tensor takes `fused_se_stage_plain`;
-a CUDA tensor launches the kernel (3 launches per block, one C call; fp32
-convs as fp32 FMA, bf16 convs on the tensor cores) or raises. `launches`
-counts the calls that went to the kernel.
+a CUDA tensor launches a kernel or raises. bf16 runs the whole stage in one
+launch, as the TPU kernel does: a thread-block cluster of n <= 8 CTAs per
+sample (`cluster_layout`) keeps the sample's activations in shared memory
+across every block, with the convs on wgmma fed by TMA-multicast weight
+tiles (repacked K-major by `pack_weights`), so device memory sees only x and
+the output; it is bound by the tensor cores. fp32 takes 3 launches per block
+through device memory (fp32 FMA convs; a sample's fp32 activations would need
+a cluster of 16). `launches` counts the calls that went to a kernel.
 """
 from __future__ import annotations
 
@@ -44,8 +49,68 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = 128    # the kernel's channel count (its N tile)
-TILE_PIXELS = 128        # output pixels per conv block (csrc/se_stage.cu kBM)
+TILE_PIXELS = 128        # output pixels per fp32 conv block (kBM)
 MAX_HIDDEN = 64
+MAX_CLUSTER = 8          # CTAs per sample in the bf16 kernel (kMaxCluster)
+# the bf16 kernel's least shared memory per CTA besides its two activation
+# tiles: csrc/se_stage.cu's kBaseSmem and a ring of kMinStages weight tiles;
+# and the most a CTA may have on an H100
+SMEM_FIXED = (1024 + 8 * 128 * 4 + 3 * 128 * 4 + 64 * 4 + 4 * 128 * 4
+              + 2 * 4 * 8 + 16 + 4 * 128 * 64 * 2)
+SMEM_LIMIT = 232448
+
+
+def cluster_layout(H: int, W: int, hidden: int = KERNEL_CHANNELS // 8):
+    """The bf16 kernel's split of one H x W sample over a thread-block
+    cluster: (R, n), R whole image rows per CTA (R * W <= 128 GEMM rows)
+    and n CTAs. Raises ValueError for a shape the kernel does not take:
+    each CTA holds two (R+2) x (W+2) x 128 bf16 tiles, the block's SE fc
+    weights (2 x 128 x hidden) and a ring of at least 4 weight tiles."""
+    if not 1 <= W <= KERNEL_CHANNELS or H < 1:
+        raise ValueError(f"fused_se_stage: the bf16 kernel takes 1 <= W <= "
+                         f"{KERNEL_CHANNELS}; got H {H}, W {W}")
+    R = min(H, KERNEL_CHANNELS // W)
+    n = -(-H // R)
+    if n > MAX_CLUSTER:
+        raise ValueError(
+            f"fused_se_stage: the bf16 kernel takes H <= {MAX_CLUSTER} * "
+            f"(128 // W) rows (a cluster of at most {MAX_CLUSTER} CTAs); got "
+            f"H {H}, W {W}: {n} CTAs of {R} rows")
+    smem = (SMEM_FIXED + 2 * (R + 2) * (W + 2) * KERNEL_CHANNELS * 2
+            + 4 * KERNEL_CHANNELS * hidden)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"fused_se_stage: the bf16 kernel's two ({R}+2) x ({W}+2) x 128 "
+            f"tiles need {smem} bytes of shared memory per CTA, more than "
+            f"{SMEM_LIMIT}; got H {H}, W {W}, hidden {hidden}")
+    return R, n
+
+
+def pack_weights(w1, w2):
+    """The bf16 kernel's weight tensor: (NB, 2, 9, C_out, C_in), conv c's
+    tap k as a K-major (output, input channel) matrix, from HWIO w1, w2
+    (NB, 3, 3, C_in, C_out); contiguous, in w1's dtype and device."""
+    NB, _, _, ci, co = w1.shape
+    return (torch.stack([w1, w2], dim=1).permute(0, 1, 2, 3, 5, 4)
+            .reshape(NB, 2, 9, co, ci).contiguous())
+
+
+def unpack_weights(wk):
+    """`pack_weights`'s inverse: (w1, w2), each (NB, 3, 3, C_in, C_out)."""
+    NB, _, _, co, ci = wk.shape
+    w = wk.reshape(NB, 2, 3, 3, co, ci).permute(0, 1, 2, 3, 5, 4)
+    return w[:, 0].contiguous(), w[:, 1].contiguous()
+
+
+def active_clusters(H: int, W: int, hidden: int = KERNEL_CHANNELS // 8):
+    """How many of the bf16 kernel's clusters at (H, W) the card holds at
+    once (cudaOccupancyMaxActiveClusters); needs the card."""
+    cluster_layout(H, W, hidden)
+    count = cuda_lib.load("se_stage").eg_se_active_clusters(H, W, hidden)
+    if count < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with "
+                           f"cudaError_t {-count}")
+    return count
 
 
 def fold_bn(weight, bias, running_mean, running_var, eps: float = 1e-5):
@@ -149,7 +214,8 @@ def _check(x, w1, f1w, tensors):
 
 def fused_se_stage(x, w1, s1, t1, w2, s2, t2, f1w, f1b, f2w, f2b):
     """NB stride-1 SEBasicBlocks, eval mode, NHWC. Returns (B, H, W, C) in
-    x's dtype. On the card x must be contiguous with C == 128."""
+    x's dtype. On the card x must be contiguous with C == 128, and a bf16
+    x's H x W must fit `cluster_layout`."""
     global launches
     if x.device.type == "cpu":
         return fused_se_stage_plain(x, w1, s1, t1, w2, s2, t2, f1w, f1b,
@@ -159,22 +225,29 @@ def fused_se_stage(x, w1, s1, t1, w2, s2, t2, f1w, f1b, f2w, f2b):
     tensors = _operands(x, w1, s1, t1, w2, s2, t2, f1w, f1b, f2w, f2b)
     B, H, W, C, NB, hidden = _check(x, w1, f1w, tensors)
     (w1, w2, f1w, f2w), (s1, t1, s2, t2, f1b, f2b) = tensors
-    tiles = -(-H * W // TILE_PIXELS)
-    out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if NB > 1 else out
-    y1 = torch.empty_like(x)
-    z = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    partial = torch.empty(B, tiles, C, dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        cluster_layout(H, W, hidden)
     lib = cuda_lib.load("se_stage")
     p = ctypes.c_void_p
-    code = lib.eg_se_stage(
-        p(x.data_ptr()), _DTYPES[x.dtype], p(out.data_ptr()),
-        p(tmp.data_ptr()), p(y1.data_ptr()), p(z.data_ptr()),
-        p(partial.data_ptr()), p(w1.data_ptr()), p(s1.data_ptr()),
-        p(t1.data_ptr()), p(w2.data_ptr()), p(s2.data_ptr()),
-        p(t2.data_ptr()), p(f1w.data_ptr()), p(f1b.data_ptr()),
-        p(f2w.data_ptr()), p(f2b.data_ptr()), B, H, W, C, NB, hidden,
-        p(torch.cuda.current_stream(x.device).cuda_stream))
+    out = torch.empty_like(x)
+    stream = p(torch.cuda.current_stream(x.device).cuda_stream)
+    if x.dtype == torch.bfloat16:
+        wk = pack_weights(w1, w2)
+        code = lib.eg_se_stage_bf16(
+            p(x.data_ptr()), p(out.data_ptr()), p(wk.data_ptr()),
+            *[p(t.data_ptr()) for t in (s1, t1, s2, t2, f1w, f1b, f2w,
+                                        f2b)], B, H, W, NB, hidden, stream)
+    else:
+        tiles = -(-H * W // TILE_PIXELS)
+        tmp = torch.empty_like(x) if NB > 1 else out
+        y1 = torch.empty_like(x)
+        z = torch.empty_like(x)
+        partial = torch.empty(B, tiles, C, dtype=torch.float32,
+                              device=x.device)
+        code = lib.eg_se_stage_fp32(
+            *[p(t.data_ptr()) for t in (x, out, tmp, y1, z, partial, w1, s1,
+                                        t1, w2, s2, t2, f1w, f1b, f2w,
+                                        f2b)], B, H, W, NB, hidden, stream)
     cuda_lib.check_launch(code, "se_stage kernel")
     launches += 1
     return out

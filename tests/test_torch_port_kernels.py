@@ -311,8 +311,10 @@ def _se_operands(nb, g):
 
 
 # (B, H, W, blocks): the JAX test's shape, the serving tail's spatial shape
-# (32 x 31 = 992 pixels: a ragged last tile of 96), one block
-CARD_SE_CASES = [(4, 8, 9, 2), (2, 32, 31, 5), (3, 5, 7, 1)]
+# (32 x 31 = 992 pixels: a ragged last tile of 96), one block; the edge of
+# the bf16 kernel's cluster layout (32 x 32: 8 CTAs of 4 rows, full 128-row
+# GEMM tiles)
+CARD_SE_CASES = [(4, 8, 9, 2), (2, 32, 31, 5), (3, 5, 7, 1), (2, 32, 32, 1)]
 
 
 @pytest.mark.cuda
@@ -357,4 +359,21 @@ def test_se_stage_wrapper_rejects_what_the_kernel_does_not_take():
         FS.fused_se_stage(x.permute(0, 2, 1, 3), *ops)
     with pytest.raises(ValueError, match="dtype"):
         FS.fused_se_stage(x.half(), *ops)
+    assert FS.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(33, 32), (2, 128)])
+def test_se_stage_wrapper_refuses_bf16_shapes_outside_the_cluster(hw):
+    """bf16 shapes the cluster kernel does not take (more than 8 CTAs; tiles
+    beyond shared memory) raise, with no launch and no fallback."""
+    from emotiongestures_torch.ops import fused_se_stage as FS
+
+    _need_card()
+    g = torch.Generator().manual_seed(3)
+    ops = [t.cuda() for t in _se_operands(1, g)]
+    x = torch.randn(1, *hw, 128, generator=g).cuda().bfloat16()
+    before = FS.launches
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        FS.fused_se_stage(x, *ops)
     assert FS.launches == before
