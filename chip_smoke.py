@@ -523,7 +523,9 @@ def phase_se_stage(gen):
             log(f"    one launch per stage: clusters of {n} CTAs x {R} rows, "
                 f"{clusters} resident at once "
                 f"(cudaOccupancyMaxActiveClusters)")
-            detail[precision]["active_clusters"] = clusters
+            # from the card's occupancy query, not measured: the log and
+            # result.json only, never the kernels line
+            detail["bf16_active_clusters"] = clusters
         if entry is None:
             entry = {"name": "se_stage", "route": "cuda",
                      "source": "emotiongestures_torch/csrc/se_stage.cu",

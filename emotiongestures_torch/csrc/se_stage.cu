@@ -74,8 +74,10 @@
 //
 // C interface (loaded with ctypes): eg_se_stage_fp32(...) and
 // eg_se_stage_bf16(...) return the cudaError_t code of their launches (0:
-// launched); eg_se_active_clusters(H, W, hidden) the number of clusters of
-// the bf16 kernel the card holds at once.
+// launched); eg_se_active_clusters(n, smem) the number of clusters of the
+// bf16 kernel the card holds at once. The wrapper picks the bf16 layout
+// (fused_se_stage.cluster_layout: R rows per CTA, n CTAs, smem bytes);
+// eg_se_stage_bf16 only checks that the kernel takes it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -358,7 +360,6 @@ constexpr int kMaxCluster = 8;
 // halo mbarriers
 constexpr int kBaseSmem = 1024 + kConsumerWarps * kC * 4 + 3 * kC * 4 +
                           kMaxHidden * 4 + 4 * kC * 4 + 2 * kStages * 8 + 16;
-constexpr int kSmemLimit = 232448;     // an H100 CTA's shared memory
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -711,11 +712,14 @@ se_stage_cluster_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   cluster_sync();  // barriers initialised and tiles loaded in every CTA
 
+  // the producer warpgroup (warps 8-11) gives up registers: all four warps
+  // run this one setmaxnreg, as PTX requires of a warpgroup
+  if (warp >= kConsumerWarps)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
   if (warp > kConsumerWarps) {
     // ---- halo warps: each tile's halo rows from the neighbours' edge rows,
     // once the cluster barrier after their writes has passed; the consumers
     // meanwhile run the centre-row taps, which read no halo row ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int h = tid - kConsumers - 32;
     for (int blk = 0; blk < NB; ++blk) {
       if (blk > 0) {  // the last block's output, the x tile's halo
@@ -736,7 +740,6 @@ se_stage_cluster_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   if (warp == kConsumerWarps) {
     // ---- producer: 18 weight tiles per conv, in the consumers' order ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     int stage = 0;
     uint32_t phase = 0;
     auto issue = [&](int blk, int conv) {
@@ -1034,16 +1037,22 @@ int run_stage_fp32(const float* x, float* out, float* tmp, float* y1,
   return 0;
 }
 
-// the bf16 kernel's cluster layout: R rows per CTA, n CTAs, and its dynamic
-// shared memory (the ring, two tiles, the SE fc weights); false where the
-// kernel does not take the shape
-bool cluster_layout(int H, int W, int hidden, int* R, int* n, int* smem) {
-  if (H < 1 || W < 1 || W > kC) return false;
-  *R = H < kC / W ? H : kC / W;
-  *n = (H + *R - 1) / *R;
-  const int tiles = 2 * (*R + 2) * (W + 2) * kPixelBytes + 4 * kC * hidden;
-  *smem = kBaseSmem + tiles + kStages * kWTile;
-  return *n <= kMaxCluster && *smem <= kSmemLimit;
+// the dynamic shared memory se_stage_cluster_kernel carves at R rows of W
+// pixels per CTA: kBaseSmem, the weight ring, the two activation tiles and
+// the block's SE fc weights
+int cluster_smem(int R, int W, int hidden) {
+  return kBaseSmem + kStages * kWTile + 2 * (R + 2) * (W + 2) * kPixelBytes +
+         4 * kC * hidden;
+}
+
+// whether the bf16 kernel takes the layout the wrapper chose: n CTAs of R
+// whole rows cover the H rows with none left empty, a CTA's R * W pixels
+// fit its 128 GEMM rows, and smem holds the kernel's carve-up (the card
+// itself refuses more shared memory than a CTA may have)
+bool layout_ok(int H, int W, int R, int n, int hidden, int smem) {
+  return H >= 1 && W >= 1 && R >= 1 && R * W <= kC && n >= 1 &&
+         n <= kMaxCluster && (n - 1) * R < H && H <= n * R && hidden >= 1 &&
+         hidden <= kMaxHidden && smem >= cluster_smem(R, W, hidden);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1119,17 +1128,16 @@ extern "C" int eg_se_stage_fp32(const void* x, void* out, void* tmp, void* y1,
 // x, out: (B, H, W, 128) bf16; wk: (NB, 2, 9, 128, 128) bf16, conv c's tap
 // k as (output, input channel), K-major (the wrapper's pack_weights); f1w
 // (NB, 128, hidden), f2w (NB, hidden, 128) bf16; s1, t1, s2, t2, f2b
-// (NB, 128) and f1b (NB, hidden) fp32. All contiguous.
+// (NB, 128) and f1b (NB, hidden) fp32. All contiguous. A cluster of n CTAs
+// of R rows per sample, with smem bytes of dynamic shared memory each.
 extern "C" int eg_se_stage_bf16(const void* x, void* out, const void* wk,
                                 const void* s1, const void* t1,
                                 const void* s2, const void* t2,
                                 const void* f1w, const void* f1b,
                                 const void* f2w, const void* f2b, int B,
-                                int H, int W, int NB, int hidden,
-                                void* stream) {
-  int R, n, smem;
-  if (hidden < 1 || hidden > kMaxHidden || B < 1 || B > 65535 || NB < 1 ||
-      !cluster_layout(H, W, hidden, &R, &n, &smem))
+                                int H, int W, int R, int n, int NB,
+                                int hidden, int smem, void* stream) {
+  if (B < 1 || B > 65535 || NB < 1 || !layout_ok(H, W, R, n, hidden, smem))
     return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -1163,12 +1171,11 @@ extern "C" int eg_se_stage_bf16(const void* x, void* out, const void* wk,
   return (int)cudaGetLastError();
 }
 
-// How many clusters of the bf16 kernel at (H, W, hidden) the card runs at
-// once (cudaOccupancyMaxActiveClusters); a negative cudaError_t on failure.
-extern "C" int eg_se_active_clusters(int H, int W, int hidden) {
-  int R, n, smem;
-  if (hidden < 1 || hidden > kMaxHidden ||
-      !cluster_layout(H, W, hidden, &R, &n, &smem))
+// How many clusters of n CTAs of the bf16 kernel, with smem bytes of
+// dynamic shared memory each, the card runs at once
+// (cudaOccupancyMaxActiveClusters); a negative cudaError_t on failure.
+extern "C" int eg_se_active_clusters(int n, int smem) {
+  if (n < 1 || n > kMaxCluster || smem < 1)
     return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       se_stage_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

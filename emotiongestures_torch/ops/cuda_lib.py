@@ -40,8 +40,8 @@ SIGNATURES = {
                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])],
     "mel": [("eg_mel", [_P, _LL, _I, _I, _I] + [_P] * 7)],
     "se_stage": [("eg_se_stage_fp32", [_P] * 16 + [_I] * 5 + [_P]),
-                 ("eg_se_stage_bf16", [_P] * 11 + [_I] * 5 + [_P]),
-                 ("eg_se_active_clusters", [_I, _I, _I])],
+                 ("eg_se_stage_bf16", [_P] * 11 + [_I] * 8 + [_P]),
+                 ("eg_se_active_clusters", [_I, _I])],
 }
 
 _lock = threading.Lock()

@@ -52,20 +52,29 @@ KERNEL_CHANNELS = 128    # the kernel's channel count (its N tile)
 TILE_PIXELS = 128        # output pixels per fp32 conv block (kBM)
 MAX_HIDDEN = 64
 MAX_CLUSTER = 8          # CTAs per sample in the bf16 kernel (kMaxCluster)
-# the bf16 kernel's least shared memory per CTA besides its two activation
-# tiles: csrc/se_stage.cu's kBaseSmem and a ring of kMinStages weight tiles;
-# and the most a CTA may have on an H100
+# the bf16 kernel's shared memory per CTA besides its two activation tiles
+# and SE fc weights: csrc/se_stage.cu's kBaseSmem (alignment slack, pool
+# sums, hidden, gate, affines, mbarriers) and its ring of 4 weight tiles of
+# 128 x 64 bf16. The kernel refuses a launch given less than its carve-up
+# (`cluster_smem` there), so a stale copy here fails loudly on the card.
 SMEM_FIXED = (1024 + 8 * 128 * 4 + 3 * 128 * 4 + 64 * 4 + 4 * 128 * 4
               + 2 * 4 * 8 + 16 + 4 * 128 * 64 * 2)
-SMEM_LIMIT = 232448
+SMEM_LIMIT = 232448      # the most shared memory an H100 CTA may have
+
+
+def cluster_smem(R: int, W: int, hidden: int = KERNEL_CHANNELS // 8):
+    """Bytes of shared memory per CTA of the bf16 kernel at R rows of W
+    pixels: two (R+2) x (W+2) x 128 bf16 tiles, the block's SE fc weights
+    (2 x 128 x hidden bf16) and `SMEM_FIXED`."""
+    return (SMEM_FIXED + 2 * (R + 2) * (W + 2) * KERNEL_CHANNELS * 2
+            + 4 * KERNEL_CHANNELS * hidden)
 
 
 def cluster_layout(H: int, W: int, hidden: int = KERNEL_CHANNELS // 8):
     """The bf16 kernel's split of one H x W sample over a thread-block
     cluster: (R, n), R whole image rows per CTA (R * W <= 128 GEMM rows)
-    and n CTAs. Raises ValueError for a shape the kernel does not take:
-    each CTA holds two (R+2) x (W+2) x 128 bf16 tiles, the block's SE fc
-    weights (2 x 128 x hidden) and a ring of at least 4 weight tiles."""
+    and n CTAs. This is the one place the layout is chosen; the kernel only
+    checks it. Raises ValueError for a shape the kernel does not take."""
     if not 1 <= W <= KERNEL_CHANNELS or H < 1:
         raise ValueError(f"fused_se_stage: the bf16 kernel takes 1 <= W <= "
                          f"{KERNEL_CHANNELS}; got H {H}, W {W}")
@@ -76,8 +85,7 @@ def cluster_layout(H: int, W: int, hidden: int = KERNEL_CHANNELS // 8):
             f"fused_se_stage: the bf16 kernel takes H <= {MAX_CLUSTER} * "
             f"(128 // W) rows (a cluster of at most {MAX_CLUSTER} CTAs); got "
             f"H {H}, W {W}: {n} CTAs of {R} rows")
-    smem = (SMEM_FIXED + 2 * (R + 2) * (W + 2) * KERNEL_CHANNELS * 2
-            + 4 * KERNEL_CHANNELS * hidden)
+    smem = cluster_smem(R, W, hidden)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"fused_se_stage: the bf16 kernel's two ({R}+2) x ({W}+2) x 128 "
@@ -105,8 +113,9 @@ def unpack_weights(wk):
 def active_clusters(H: int, W: int, hidden: int = KERNEL_CHANNELS // 8):
     """How many of the bf16 kernel's clusters at (H, W) the card holds at
     once (cudaOccupancyMaxActiveClusters); needs the card."""
-    cluster_layout(H, W, hidden)
-    count = cuda_lib.load("se_stage").eg_se_active_clusters(H, W, hidden)
+    R, n = cluster_layout(H, W, hidden)
+    count = cuda_lib.load("se_stage").eg_se_active_clusters(
+        n, cluster_smem(R, W, hidden))
     if count < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with "
                            f"cudaError_t {-count}")
@@ -226,7 +235,7 @@ def fused_se_stage(x, w1, s1, t1, w2, s2, t2, f1w, f1b, f2w, f2b):
     B, H, W, C, NB, hidden = _check(x, w1, f1w, tensors)
     (w1, w2, f1w, f2w), (s1, t1, s2, t2, f1b, f2b) = tensors
     if x.dtype == torch.bfloat16:
-        cluster_layout(H, W, hidden)
+        R, n = cluster_layout(H, W, hidden)
     lib = cuda_lib.load("se_stage")
     p = ctypes.c_void_p
     out = torch.empty_like(x)
@@ -236,7 +245,8 @@ def fused_se_stage(x, w1, s1, t1, w2, s2, t2, f1w, f1b, f2w, f2b):
         code = lib.eg_se_stage_bf16(
             p(x.data_ptr()), p(out.data_ptr()), p(wk.data_ptr()),
             *[p(t.data_ptr()) for t in (s1, t1, s2, t2, f1w, f1b, f2w,
-                                        f2b)], B, H, W, NB, hidden, stream)
+                                        f2b)], B, H, W, R, n, NB, hidden,
+            cluster_smem(R, W, hidden), stream)
     else:
         tiles = -(-H * W // TILE_PIXELS)
         tmp = torch.empty_like(x) if NB > 1 else out

@@ -313,8 +313,12 @@ def _se_operands(nb, g):
 # (B, H, W, blocks): the JAX test's shape, the serving tail's spatial shape
 # (32 x 31 = 992 pixels: a ragged last tile of 96), one block; the edge of
 # the bf16 kernel's cluster layout (32 x 32: 8 CTAs of 4 rows, full 128-row
-# GEMM tiles)
-CARD_SE_CASES = [(4, 8, 9, 2), (2, 32, 31, 5), (3, 5, 7, 1), (2, 32, 32, 1)]
+# GEMM tiles); clusters whose last CTA holds rows past H (30 x 31: 8 CTAs,
+# the last with 2 of its 4 rows; 3 x 64: 2 CTAs of 2 rows, the last with 1)
+# and a cluster of 3 CTAs (12 x 31), where a weight tile's 8 multicast
+# slices split unevenly over the CTAs
+CARD_SE_CASES = [(4, 8, 9, 2), (2, 32, 31, 5), (3, 5, 7, 1), (2, 32, 32, 1),
+                 (2, 30, 31, 2), (2, 12, 31, 2), (2, 3, 64, 1)]
 
 
 @pytest.mark.cuda
@@ -377,3 +381,27 @@ def test_se_stage_wrapper_refuses_bf16_shapes_outside_the_cluster(hw):
     with pytest.raises(ValueError, match="bf16 kernel"):
         FS.fused_se_stage(x, *ops)
     assert FS.launches == before
+
+
+@pytest.mark.cuda
+def test_se_stage_bf16_entry_checks_the_layout():
+    """The C entry takes the wrapper's layout (R, n, smem) and refuses,
+    before any launch, one that does not cover H, overfills the 128 GEMM
+    rows or gives less shared memory than the kernel carves."""
+    import ctypes
+
+    from emotiongestures_torch.ops import cuda_lib
+    from emotiongestures_torch.ops import fused_se_stage as FS
+
+    _need_card()
+    lib = cuda_lib.load("se_stage")
+    H, W, hidden = 32, 31, 16
+    R, n = FS.cluster_layout(H, W, hidden)
+    smem = FS.cluster_smem(R, W, hidden)
+    null = [ctypes.c_void_p(0)] * 11
+    invalid = 1  # cudaErrorInvalidValue
+    for bad in ((R, n - 1, smem), (R + 1, n, smem), (R, n, smem - 1),
+                (R, 9, smem)):
+        assert lib.eg_se_stage_bf16(*null, 1, H, W, bad[0], bad[1], 1, hidden,
+                                    bad[2], None) == invalid, bad
+    assert FS.active_clusters(H, W, hidden) >= 1

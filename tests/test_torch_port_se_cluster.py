@@ -17,14 +17,27 @@ from emotiongestures_torch.ops import fused_se_stage as FS
 
 
 # (H, W) -> (R, n): the serving tail (124 of 128 GEMM rows), the JAX test's
-# shape and the smallest card case (one CTA), a full 128-row tile, 2 columns
+# shape and the smallest card case (one CTA), a full 128-row tile, 2 columns,
+# and the card cases whose last CTA is ragged (30 x 31, 3 x 64) or whose
+# cluster is 3 CTAs (12 x 31)
 @pytest.mark.parametrize("hw,layout", [((32, 31), (4, 8)), ((8, 9), (8, 1)),
                                        ((5, 7), (5, 1)), ((32, 32), (4, 8)),
-                                       ((64, 2), (64, 1)), ((3, 64), (2, 2))])
+                                       ((64, 2), (64, 1)), ((3, 64), (2, 2)),
+                                       ((30, 31), (4, 8)), ((12, 31), (4, 3))])
 def test_cluster_layout(hw, layout):
     R, n = FS.cluster_layout(*hw)
     assert (R, n) == layout
     assert R * hw[1] <= 128 and (n - 1) * R < hw[0] <= n * R
+    assert FS.cluster_smem(R, hw[1]) <= FS.SMEM_LIMIT
+
+
+def test_cluster_smem_counts_the_kernels_carve_up():
+    """At 32 x 31 a CTA holds two 6 x 33 x 128 bf16 tiles (50,688 bytes
+    each), a ring of 4 weight tiles of 128 x 64 bf16, the SE fc weights
+    (2 x 128 x 16 bf16) and kBaseSmem's 9,040 bytes."""
+    assert FS.cluster_smem(4, 31) == 2 * 50688 + 4 * 16384 + 8192 + 9040
+    assert FS.cluster_smem(4, 31, 64) - FS.cluster_smem(4, 31, 16) == \
+        4 * 128 * 48
 
 
 @pytest.mark.parametrize("hw,match", [((4, 129), "W <= 128"),
