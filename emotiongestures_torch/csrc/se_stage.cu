@@ -712,33 +712,34 @@ se_stage_cluster_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   cluster_sync();  // barriers initialised and tiles loaded in every CTA
 
-  // the producer warpgroup (warps 8-11) gives up registers: all four warps
-  // run this one setmaxnreg, as PTX requires of a warpgroup
-  if (warp >= kConsumerWarps)
+  // the producer warpgroup (warps 8-11): all four warps give up registers
+  // at one setmaxnreg, as PTX requires of a warpgroup, inside a branch the
+  // consumers never reach (placed before the branches, on a path the
+  // consumers rejoin, it cost ~5% of the stage: tools/se_stage_breakdown.py)
+  if (warp >= kConsumerWarps) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-  if (warp > kConsumerWarps) {
-    // ---- halo warps: each tile's halo rows from the neighbours' edge rows,
-    // once the cluster barrier after their writes has passed; the consumers
-    // meanwhile run the centre-row taps, which read no halo row ----
-    const int h = tid - kConsumers - 32;
-    for (int blk = 0; blk < NB; ++blk) {
-      if (blk > 0) {  // the last block's output, the x tile's halo
+    if (warp > kConsumerWarps) {
+      // ---- halo warps: each tile's halo rows from the neighbours' edge rows,
+      // once the cluster barrier after their writes has passed; the consumers
+      // meanwhile run the centre-row taps, which read no halo row ----
+      const int h = tid - kConsumers - 32;
+      for (int blk = 0; blk < NB; ++blk) {
+        if (blk > 0) {  // the last block's output, the x tile's halo
+          cluster_wait();
+          copy_halo(xt, xg, h, R, P, rank, n);
+          mbar_arrive(x_halo);
+        }
+        cluster_arrive();
         cluster_wait();
-        copy_halo(xt, xg, h, R, P, rank, n);
-        mbar_arrive(x_halo);
+        copy_halo(yt, yg, h, R, P, rank, n);
+        mbar_arrive(y_halo);
+        cluster_arrive();
+        cluster_wait();
+        cluster_arrive();
       }
-      cluster_arrive();
       cluster_wait();
-      copy_halo(yt, yg, h, R, P, rank, n);
-      mbar_arrive(y_halo);
-      cluster_arrive();
-      cluster_wait();
-      cluster_arrive();
+      return;
     }
-    cluster_wait();
-    return;
-  }
-  if (warp == kConsumerWarps) {
     // ---- producer: 18 weight tiles per conv, in the consumers' order ----
     int stage = 0;
     uint32_t phase = 0;
