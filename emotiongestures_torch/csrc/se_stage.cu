@@ -714,8 +714,9 @@ se_stage_cluster_kernel(const __grid_constant__ CUtensorMap wmap,
 
   // the producer warpgroup (warps 8-11): all four warps give up registers
   // at one setmaxnreg, as PTX requires of a warpgroup, inside a branch the
-  // consumers never reach (placed before the branches, on a path the
-  // consumers rejoin, it cost ~5% of the stage: tools/se_stage_breakdown.py)
+  // consumers never reach: placed before the branches, on a path the
+  // consumers rejoin, it slowed the bf16 stage by ~4% (chip_smoke.py phase
+  // 2c, 7.30 against 7.03 ms on an H100 SXM)
   if (warp >= kConsumerWarps) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (warp > kConsumerWarps) {

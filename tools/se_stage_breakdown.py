@@ -10,9 +10,7 @@ Each variant is the kernel's source with edits made to its text: the
 weight tiles loaded by each CTA for itself in place of multicast to the
 cluster; a ring of 2 weight slots in place of 4; each k-tile's wgmma
 waited for before the next k-tile's A fragments load (in place of one
-k-tile in flight); the producer warpgroup's `setmaxnreg.dec` placed before
-the warp-role branches, on a path the consumer warps pass too, in place of
-inside the producer warpgroup's own branch; the SE fcs skipped; every wgmma dropped (the ring, the
+k-tile in flight); the SE fcs skipped; every wgmma dropped (the ring, the
 ldmatrix loads, the barriers, halo copies and epilogues stay); and every
 wgmma and the whole weight ring dropped (no TMA load issued, waited for or
 released). A last variant reads the SM's clock at each phase boundary of
@@ -60,13 +58,6 @@ NO_RING = [  # no weight tile issued, waited for or released
     ("  auto release = [&](int s) {\n",
      "  auto release = [&](int s) {\n    return;\n"),
 ]
-# the producer warpgroup's setmaxnreg.dec moved before the role branches,
-# onto a path the consumer warps pass too (they skip it)
-_DEC = '    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\\n");\n'
-SETMAXNREG_SHARED = (
-    "  if (warp >= kConsumerWarps) {\n" + _DEC,
-    "  if (warp >= kConsumerWarps)\n" + _DEC
-    + "  if (warp >= kConsumerWarps) {\n")
 # the phase clock: thread 0 of rank 0 in the clusters of samples 0 and
 # B // 2 reads clock64 at each phase boundary into a device array (and the
 # global timer at the ends, for the clock rate)
@@ -126,7 +117,6 @@ EDITS = {  # variant: ([(text, replacement)], checked against plain)
     "one k-tile at a time": ([("wgmma_wait<1>();", "wgmma_wait<0>();")],
                              True),
     "ring of 2 slots": ([("kStages = 4;", "kStages = 2;")], True),
-    "setmaxnreg where the consumers rejoin": ([SETMAXNREG_SHARED], True),
     "no SE gate": ([(SE_CALL, "    if (0) se_gate<__nv_bfloat16>(")], False),
     "no products": ([(WGMMA, "")], False),
     "no products, no weight ring": ([(WGMMA, ""), *NO_RING], False),
