@@ -39,7 +39,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      attention, beat frontend on the card) with 2 diversity passes, and the
      fp32 parity preset with --skip_beat; finite metrics, 6 attention
      launches per eval_batch in the fast run, and in fp32 a 2-row eval_batch
-     on the card against the CPU.
+     on the card against the CPU;
+  6. GAN training through the trainer's `main` at full width (d_model 512,
+     d_inner 2048, 3+3 layers, 8 heads, pose 282, 60 frames, 64 words,
+     batch 128) on 512 synthetic samples: 6a `--preset parity` (fp32,
+     d_first), 2 epochs (8 steps), then `--resume` for one more epoch, which
+     must end at step 12 for G and D; 6b `--preset fast` (bf16 compute,
+     g_first), the same. ms per step (CUDA events, steps 3-8), samples/s,
+     peak memory and the last losses, which must be finite; no kernel
+     launch during training (the attention kernel fuses only in eval mode).
+     6c: one d_first train_step at d_model 128, one layer, batch 8, dropout
+     off, on the card and on the CPU from the same weights and batch;
+     losses, Adam moments, BatchNorm running statistics and parameters
+     compared, and the same comparison with a fault planted on the card
+     (torch's momentum convention in the running update) that it must
+     fail.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -51,6 +65,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -64,6 +79,10 @@ from emotiongestures_torch.cli import demo  # noqa: E402
 from emotiongestures_torch.cli import (  # noqa: E402
     test_emotion_gesture_diversity_iterative as eval_cli,
 )
+from emotiongestures_torch.cli import (  # noqa: E402
+    train_emotion_gesture as train_cli,
+)
+from emotiongestures_torch.core import layers as L  # noqa: E402
 from emotiongestures_torch.core import precision as prec  # noqa: E402
 from emotiongestures_torch.core.device import fp32_exact_on_cuda  # noqa: E402
 from emotiongestures_torch.ops import cuda_lib  # noqa: E402
@@ -80,6 +99,7 @@ from emotiongestures_torch.serving import (  # noqa: E402
     GestureServer,
     set_fused_attention,
 )
+from emotiongestures_torch.train import gan  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, TF32 and
 # bf16 on the tensor cores, HBM3
@@ -611,11 +631,43 @@ KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name), in order
     ("attention kernel (csrc/attention.cu)", ("mha_qkv", "mha_core",
                                               "mha_out_ln")),
     ("mel kernel (csrc/mel.cu)", ("mel_fft_kernel",)),
-    ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
+    ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "dgrad", "wgrad",
+                             "fft", "pointwise_mult_and_sum")),
     ("matmul (cuBLAS/CUTLASS)", ("gemm", "cutlass", "matmul")),
+    ("optimizer (Adam, foreach)", ("multi_tensor_apply",)),
     ("elementwise and reductions", ("elementwise", "reduce", "softmax",
                                     "cat", "copy", "fill", "index")),
 )
+
+
+def kernel_split(prof):
+    """CUDA kernel time of a torch.profiler run by KERNEL_GROUPS, and each
+    kernel's (ms, count, name)."""
+    groups, top = {}, []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.key
+        if name.startswith("Optimizer."):
+            continue  # the optimizer's record_function span, not a kernel
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name.lower() for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        top.append((us / 1e3, evt.count, name[:90]))
+    return groups, top
+
+
+def log_split(label, wall_ms, groups, top) -> float:
+    busy = sum(groups.values())
+    log(f"  {label}: wall {wall_ms:.1f} ms (under the profiler), CUDA "
+        f"kernels {busy:.1f} ms, device busy share {busy / wall_ms:.3f}")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:9.2f} ms  {100 * ms / busy:5.1f}%  {g}")
+    for ms, n, name in sorted(top, reverse=True)[:12]:
+        log(f"      {ms:8.2f} ms  x{n:<4d} {name}")
+    return busy
 
 
 def profile_batch(server, inputs, precision, card):
@@ -630,25 +682,9 @@ def profile_batch(server, inputs, precision, card):
         server.generate(*inputs[:4], noise=inputs[4])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top = {}, []
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        name = evt.key
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name.lower() for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + us / 1e3
-        top.append((us / 1e3, evt.count, name[:90]))
-    busy = sum(groups.values())
-    log(f"  profile ({precision}, [{card}]): wall {wall_ms:.1f} ms (under "
-        f"the profiler), CUDA kernels {busy:.1f} ms, device busy share "
-        f"{busy / wall_ms:.3f}")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"    {ms:9.2f} ms  {100 * ms / busy:5.1f}%  {g}")
-    for ms, n, name in sorted(top, reverse=True)[:12]:
-        log(f"      {ms:8.2f} ms  x{n:<4d} {name}")
+    groups, top = kernel_split(prof)
+    busy = log_split(f"profile ({precision}, [{card}])", wall_ms, groups,
+                     top)
     attn = [(ms, n, name) for ms, n, name in top
             if any(k in name.lower() for k in KERNEL_GROUPS[0][1])]
     log("    attention kernels:")
@@ -838,6 +874,210 @@ def phase_eval(card, counts, out_dir: Path):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: GAN training
+# ---------------------------------------------------------------------------
+
+TRAIN_SAMPLES, TRAIN_BATCH = 512, 128
+# each run's flags and the GANConfig fields its preset sets
+TRAIN_RUNS = {
+    "fp32": (["--preset", "parity"],
+             dict(compute_dtype="float32", update_order="d_first")),
+    "fast": (["--preset", "fast"],
+             dict(compute_dtype="bfloat16", update_order="g_first")),
+}
+# 6c, one train step on the card against the CPU, fp32 with TF32 off:
+# losses rtol 1e-4; Adam moments rtol 1e-3, atol 1e-3 of the tensor's
+# largest entry, except where fp32 gradients are ill-conditioned in any
+# implementation (the audio encoder's SE-ResNet: up to 6.6e-2 of the largest
+# entry from a float64 run on the CPU, tests/test_torch_port_train_dfirst.py)
+# at 0.15 of it, and final_conv1.bias, whose exact gradient is zero (it
+# feeds a train-mode BatchNorm), within mu 1e-6 / nu 1e-12; running
+# statistics rtol 1e-4, atol 1e-5; parameters atol 2.02 * lr (Adam's first
+# update is about lr * sign(g); 1% for the rounding of the weights)
+STEP_CFG = dict(d_model=128, d_inner=256, n_layers=1)
+STEP_B = 8
+ILL = "audio_encoder.feat_extractor."
+ZERO_GRAD = "audio_encoder.final_conv1.bias"
+
+
+def train_once(name, extra, model_dir, epochs, resume):
+    args = train_cli.build_parser().parse_args([
+        "--synthetic", str(TRAIN_SAMPLES), "--batch_size", str(TRAIN_BATCH),
+        "--total_epoch", str(epochs), "--device", "cuda", "--save_every",
+        "1000", "--model_save_path", str(model_dir), *extra,
+        *(["--resume"] if resume else [])])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    gen, disc, summary = train_cli.main(args)
+    launches = (FA.launches, FM.launches, FS.launches)
+    if launches != (0, 0, 0):
+        raise SystemExit(f"train {name}: kernel launches during training "
+                         f"(attention, mel, SE stage) = {launches}")
+    bad = [k for k, v in summary["metrics"].items() if not np.isfinite(v)]
+    if bad:
+        raise SystemExit(f"train {name}: non-finite losses {bad}")
+    summary["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return gen, disc, summary
+
+
+def profile_train_step(gen_state, disc_state, cfg, card):
+    """With --profile: one train step at batch 128 under torch.profiler,
+    CUDA kernel time by group and the device's busy share of the step."""
+    batch = {k: v.cuda() for k, v in train_batch(TRAIN_BATCH).items()}
+    gan.train_step(gen_state, disc_state, batch, 0, cfg)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        gan.train_step(gen_state, disc_state, batch, 1, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = kernel_split(prof)
+    busy = log_split(f"profiled train step ({cfg.compute_dtype}, "
+                     f"{cfg.update_order}, [{card}])", wall_ms, groups, top)
+    return {"wall_ms": wall_ms, "kernel_ms": busy, "groups_ms": groups}
+
+
+def train_batch(b):
+    ds = SyntheticGestureDataset(n_samples=b, seed=1)
+    batch = next(ds.batches(b, shuffle=False,
+                            fields=train_cli.BATCH_KEYS))
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def phase_train(card, profiling=False):
+    results = {}
+    for (name, (extra, fields)), tag in zip(TRAIN_RUNS.items(), "ab"):
+        log(f"phase 6{tag} ({name}): trainer main {' '.join(extra)} "
+            f"--synthetic {TRAIN_SAMPLES} --batch_size {TRAIN_BATCH} "
+            f"--total_epoch 2, then --resume --total_epoch 1")
+        with tempfile.TemporaryDirectory() as model_dir:
+            gen, disc, first = train_once(name, extra, model_dir, 2, False)
+            if (gen.step, disc.step) != (8, 8):
+                raise SystemExit(f"train {name}: steps {gen.step}, "
+                                 f"{disc.step} after 2 epochs (want 8)")
+            gen, disc, resumed = train_once(name, extra, model_dir, 1, True)
+            if (gen.step, disc.step) != (12, 12):
+                raise SystemExit(f"train {name}: steps {gen.step}, "
+                                 f"{disc.step} after --resume (want 12)")
+            profile = (profile_train_step(gen, disc,
+                                          gan.GANConfig(**fields), card)
+                       if profiling else None)
+        steady = first["step_ms"][2:]
+        ms = float(np.mean(steady))
+        res = {"ms_per_step": ms, "samples_per_s": TRAIN_BATCH / ms * 1e3,
+               "step_ms": first["step_ms"],
+               "resume_step_ms": resumed["step_ms"],
+               "peak_bytes": max(first["peak_bytes"],
+                                 resumed["peak_bytes"]),
+               "wall_s": first["wall_s"], "resume_wall_s": resumed["wall_s"],
+               "losses": resumed["metrics"], "attention_launches": 0,
+               "profile": profile}
+        log(f"  [{card}] {name}: {ms:.2f} ms per step (CUDA events, mean "
+            f"of steps 3-8; all: "
+            f"{', '.join(f'{t:.2f}' for t in first['step_ms'])}; "
+            f"resumed: {', '.join(f'{t:.2f}' for t in resumed['step_ms'])})"
+            f", {res['samples_per_s']:.1f} samples/s, peak "
+            f"{res['peak_bytes'] / 2**30:.2f} GiB allocated, wall "
+            f"{first['wall_s']:.1f} s + {resumed['wall_s']:.1f} s")
+        log(f"  [{card}] {name}: steps 8 -> 12 for G and D; last losses "
+            + ", ".join(f"{k} {v:.5f}" for k, v in res["losses"].items())
+            + "; attention, mel and SE-stage launches 0")
+        results[name] = res
+    results["card_vs_cpu"] = phase_train_step()
+    return results
+
+
+def step_states(device):
+    cfg = gan.GANConfig(**STEP_CFG)
+    gs, ds = gan.create_states(cfg, 0, device=device)
+    for module in (gs.module, ds.module):
+        for d in module.modules():
+            if isinstance(d, L.Dropout):
+                d.p = 0.0
+    return cfg, gs, ds
+
+
+def one_step(device, batch):
+    cfg, gs, ds = step_states(device)
+    gs, ds, m = gan.train_step(
+        gs, ds, {k: v.to(device) for k, v in batch.items()}, 1, cfg)
+    return cfg, gs, ds, {k: float(v) for k, v in m.items()}
+
+
+def step_errors(card, cpu):
+    """Worst error of each compared quantity and the list of tolerance
+    violations, card against CPU."""
+    (cfg, g1, d1, m1), (_, g0, d0, m0) = card, cpu
+    worst, bad = {}, []
+
+    def check(what, name, got, want, rtol, atol):
+        got, want = got.detach().double().cpu(), want.detach().double()
+        err = (got - want).abs()
+        worst[what] = max(worst.get(what, 0.0), float(err.max()))
+        if bool((err > atol + rtol * want.abs()).any()):
+            bad.append(f"{what} {name}")
+
+    for k, v in m0.items():
+        check("losses", k, torch.tensor(m1[k]), torch.tensor(v), 1e-4, 1e-6)
+    for net, (s1, s0) in {"G": (g1, g0), "D": (d1, d0)}.items():
+        p1 = dict(s1.module.named_parameters())
+        for name, p in s0.module.named_parameters():
+            check("params", f"{net} {name}", p1[name], p, 0.0,
+                  2.02 * cfg.lr)
+            for key, zero_atol in (("exp_avg", 1e-6), ("exp_avg_sq", 1e-12)):
+                want = s0.optimizer.state[p][key]
+                got = s1.optimizer.state[p1[name]][key]
+                scale = float(want.abs().max())
+                if name == ZERO_GRAD:
+                    rtol, atol = 0.0, zero_atol
+                elif name.startswith(ILL):
+                    rtol, atol = 1e-3, 0.15 * scale
+                else:
+                    rtol, atol = 1e-3, 1e-3 * scale
+                check(key, f"{net} {name}", got, want, rtol, atol)
+        b1 = dict(s1.module.named_buffers())
+        for name, b in s0.module.named_buffers():
+            check("running stats", f"{net} {name}", b1[name], b, 1e-4, 1e-5)
+    return worst, bad
+
+
+def torch_momentum(self, mean, var):
+    """The planted fault: torch's convention, running = 0.1 * running +
+    0.9 * batch."""
+    self.running_mean.copy_(0.1 * self.running_mean + 0.9 * mean)
+    self.running_var.copy_(0.1 * self.running_var + 0.9 * var)
+
+
+def phase_train_step():
+    log(f"phase 6c: one d_first train step, d_model 128, one layer, batch "
+        f"{STEP_B}, dropout off, the card against the CPU")
+    batch = train_batch(STEP_B)
+    cpu = one_step("cpu", batch)
+    worst, bad = step_errors(one_step("cuda", batch), cpu)
+    log("  max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                     worst.items())
+        + f" ({'ok' if not bad else 'FAIL: ' + ', '.join(bad[:5])})")
+    if bad:
+        raise SystemExit("train step: the card disagrees with the CPU")
+    honest = L.BatchNorm.update_running
+    L.BatchNorm.update_running = torch.no_grad()(torch_momentum)
+    try:
+        faulty = one_step("cuda", batch)
+    finally:
+        L.BatchNorm.update_running = honest
+    fworst, fbad = step_errors(faulty, cpu)
+    caught = bool(fbad)
+    log(f"  planted fault torch_momentum: running stats max_abs_err "
+        f"{fworst['running stats']:.3e}, {len(fbad)} tensors out of "
+        f"tolerance, {'caught' if caught else 'MISSED'}")
+    if not caught:
+        raise SystemExit("the train-step check misses torch_momentum")
+    return {"max_abs_err": worst, "planted_fault_caught": caught}
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
@@ -879,6 +1119,7 @@ def main(argv) -> int:
     serving = [phase_serving(p, gen, card, counts, args.profile)
                for p in ("float32", "bfloat16")]
     evals = phase_eval(card, counts, args.out)
+    train = phase_train(card, args.profile)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -886,10 +1127,12 @@ def main(argv) -> int:
             raise SystemExit(f"{e['name']}: not launched on the main path")
 
     detail = {"card": card, "serving": serving, "eval": evals,
-              "se_stage": se_detail,
+              "train": train, "se_stage": se_detail,
               "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
-    log(json.dumps({"serving": serving}))
+    log(json.dumps({"serving": serving, "train": {
+        k: {m: v[m] for m in ("ms_per_step", "samples_per_s", "peak_bytes")}
+        for k, v in train.items() if k in TRAIN_RUNS}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

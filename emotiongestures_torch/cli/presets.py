@@ -1,8 +1,10 @@
-"""--preset fast|parity for the eval CLI (a copy of
-emotiongestures_tpu/cli/presets.py's eval part).
+"""--preset fast|parity for the eval CLI and the GAN trainer (a copy of
+emotiongestures_tpu/cli/presets.py's tables for those two).
 
 `parity` (the default) keeps the reference-faithful fp32 configuration.
-`fast` expands to --precision bfloat16 --fused_attention --device_beat.
+`fast` expands to --precision bfloat16 --fused_attention --device_beat in
+the eval CLI, and to --compute_dtype bfloat16 --update_order g_first in the
+trainer.
 Expansion only touches flags the user left at their parser default, so an
 explicit flag always wins over the preset (e.g. `--preset fast --precision
 float32` keeps fp32).
@@ -18,13 +20,19 @@ EVAL_FAST = {
     "device_beat": True,
 }
 
+GAN_TRAIN_FAST = {
+    "compute_dtype": "bfloat16",
+    "update_order": "g_first",
+}
+
 
 def add_preset_flag(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--preset", type=str, default="parity", choices=["parity", "fast"],
         help="parity (default): reference-faithful fp32 config. "
-             "fast: bf16 generator and CVAE, the fused attention kernel and "
-             "the beat frontend on the card; explicit flags override it")
+             "fast: eval, the bf16 generator and CVAE, the fused attention "
+             "kernel and the beat frontend on the card; training, bf16 "
+             "compute and update_order g_first. Explicit flags override it")
 
 
 def _explicitly_set(name: str, args, parser, argv) -> bool:

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
-from ..core.layers import BatchNorm, Conv1d, Conv2d, Linear
+from ..core.layers import BatchNorm, Conv1d, Conv2d, Dropout, Linear
 from ..nn.resnet_se import ResNetSE
 from ..nn.tcn import TemporalConvNet
 from ..nn.transformer import TransformerDecoder, TransformerEncoder
@@ -40,15 +40,17 @@ class AudioResNetEncoder(nn.Module):
     (Models_memory.py:92-133): 3-stage SE-ResNet, conv to `frames`
     channels, flatten freq x time per frame channel, two fcs."""
 
-    def __init__(self, frames=60, d_model=512, n_mels=128, spec_len=124):
+    def __init__(self, frames=60, d_model=512, n_mels=128, spec_len=124,
+                 remat_blocks=False):
         super().__init__()
         self.frames = frames
-        self.feat_extractor = ResNetSE((3, 4, 6), (32, 64, 128))
+        self.feat_extractor = ResNetSE((3, 4, 6), (32, 64, 128),
+                                       remat_blocks=remat_blocks)
         self.final_conv1 = Conv2d(128, frames, 3, padding=1)
         self.bn1 = BatchNorm(frames)
         flat = _half_up(_half_up(n_mels)) * _half_up(_half_up(spec_len))
         self.fc1 = Linear(flat, d_model)
-        self.dropout = nn.Dropout(0.2)
+        self.dropout = Dropout(0.2)
         self.fc2 = Linear(d_model, d_model)
 
     def forward(self, spec):
@@ -67,7 +69,7 @@ class TextEncoderTCN(nn.Module):
         super().__init__()
         self.embedding = nn.Embedding(n_words, embed_size)
         nn.init.normal_(self.embedding.weight, std=1.0)
-        self.emb_dropout = nn.Dropout(emb_dropout)
+        self.emb_dropout = Dropout(emb_dropout)
         self.tcn = TemporalConvNet(embed_size, [hidden_size] * n_layers,
                                    kernel_size, dropout)
         self.fc1 = nn.Sequential(Linear(frames, frames))
@@ -90,7 +92,7 @@ class SPMemoryV1(nn.Module):
         super().__init__()
         self.prior_frames, self.chunk = prior_frames, chunk_length
         self.spatial_chunk_encoder = _mlp(chunk_length * pose_dim, pose_dim,
-                                          pose_dim, nn.Dropout(0.2))
+                                          pose_dim, Dropout(0.2))
 
     def forward(self, initial, pred):
         B = initial.shape[0]
@@ -110,10 +112,10 @@ class TMMemory(nn.Module):
         super().__init__()
         self.prior_frames, self.chunk = prior_frames, chunk_length
         self.temporal_chunk_encoder = _mlp(chunk_length * pose_dim, pose_dim,
-                                           pose_dim, nn.Dropout(0.2))
+                                           pose_dim, Dropout(0.2))
         self.temporal_memory_encoder = _mlp(chunk_length * pose_dim,
                                             chunk_length, chunk_length,
-                                            nn.Dropout(0.2))
+                                            Dropout(0.2))
 
     def forward(self, initial, pred):
         B = initial.shape[0]
@@ -141,7 +143,7 @@ class PriorMemoryEncoder(nn.Module):
             BatchNorm(pred_length))
         self.spatial_memory = SPMemoryV1(prior_frames, pose_dim, chunk_length)
         self.temporal_memory = TMMemory(prior_frames, pose_dim, chunk_length)
-        self.post_header = _mlp(pose_dim, d_model, d_model, nn.Dropout(0.2))
+        self.post_header = _mlp(pose_dim, d_model, d_model, Dropout(0.2))
 
     def forward(self, x):  # (B, prior, pose_dim)
         pred = self.pred_conv(x)  # (B, pred_length, pose_dim)
@@ -154,23 +156,31 @@ class GestureTransformer(nn.Module):
     """The full generator, variant "memory". `fused_attention=True` routes
     the eval-mode attention sublayers (3 encoder self-attention, 3 decoder
     cross-attention at the flagship depth) through `ops/fused_attention.py`.
-    Built on `device` (the card unless the CPU is asked for), in eval mode."""
+    Built on `device` (the card unless the CPU is asked for), in eval mode.
+
+    After `.train()` it is the JAX generator's `train=True`: BatchNorm on
+    batch statistics (core/layers.py), dropout drawn from the generator
+    that `core.layers.dropout_generator` sets, attention on the einsum path,
+    and the same 5-tuple. `remat_audio=True` checkpoints each SE block of
+    the audio encoder (the JAX `remat_audio`)."""
 
     def __init__(self, n_words, frames=60, pose_dim=282, prior_frames=10,
                  d_model=512, d_inner=2048, n_layers=3, n_head=8, d_k=64,
                  d_v=64, dropout=0.2, n_position=60, chunk_length=10,
                  wordembed_dim=300, text_dropout=0.1, n_emotions=8,
-                 spec_len=124, fused_attention=False, device=None):
+                 spec_len=124, fused_attention=False, remat_audio=False,
+                 device=None):
         super().__init__()
         self.text_encoder = TextEncoderTCN(n_words, wordembed_dim,
                                            frames=frames,
                                            dropout=text_dropout)
         self.audio_encoder = AudioResNetEncoder(frames, d_model,
-                                                spec_len=spec_len)
+                                                spec_len=spec_len,
+                                                remat_blocks=remat_audio)
         self.prior_seq_encoder = PriorMemoryEncoder(
             prior_frames, frames, pose_dim, d_model, chunk_length)
-        self.emotion_proj = _mlp(d_model, d_model, d_model, nn.Dropout(0.2))
-        self.semantic_proj = _mlp(d_model, d_model, d_model, nn.Dropout(0.2))
+        self.emotion_proj = _mlp(d_model, d_model, d_model, Dropout(0.2))
+        self.semantic_proj = _mlp(d_model, d_model, d_model, Dropout(0.2))
         self.fusion_proj = _mlp(d_model, d_model, d_model, nn.ReLU())
         self.emotion_classifer_header = nn.Sequential(
             Linear(frames * d_model, d_model), nn.ReLU(),
@@ -183,9 +193,9 @@ class GestureTransformer(nn.Module):
             n_layers, n_head, d_k, d_v, d_model, d_inner, dropout,
             fused=fused_attention)
         self.post_projector = nn.Sequential(
-            Linear(d_model, d_model * 4), nn.Dropout(0.2),
-            Linear(d_model * 4, d_model), nn.Dropout(0.2),
-            Linear(d_model, pose_dim), nn.Dropout(0.2),
+            Linear(d_model, d_model * 4), Dropout(0.2),
+            Linear(d_model * 4, d_model), Dropout(0.2),
+            Linear(d_model, pose_dim), Dropout(0.2),
             Linear(pose_dim, pose_dim))
         self.to(resolve_device(device))
         self.eval()

@@ -5,6 +5,10 @@ Reference quirks kept: SEBasicBlock's first leg is conv -> relu -> bn
 (Full_model/ResNetBlocks.py:24-29) and the stem is conv3x3 -> relu -> bn
 (Full_model/ResNetSE34V2.py:62-66). Convolutions are cuDNN's, as the JAX
 package leaves them to XLA and runs them in no Pallas kernel.
+
+`remat_blocks=True` is the JAX package's `nn.remat` per block: in training,
+each SEBasicBlock runs under `torch.utils.checkpoint` (non-reentrant), so
+the backward recomputes its activations instead of keeping them.
 """
 from __future__ import annotations
 
@@ -12,9 +16,11 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..core.init import kaiming_normal_fan_out_
-from ..core.layers import BatchNorm, Conv2d, Linear
+from ..core.layers import BatchNorm, Conv2d, Linear, frozen_stats
 
 
 class SELayer(nn.Module):
@@ -70,8 +76,9 @@ class ResNetSE(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6),
                  num_filters: Sequence[int] = (32, 64, 128),
-                 reduction: int = 8):
+                 reduction: int = 8, remat_blocks: bool = False):
         super().__init__()
+        self.remat_blocks = remat_blocks
         self.conv1 = Conv2d(1, num_filters[0], 3, padding=1)
         kaiming_normal_fan_out_(self.conv1.weight)
         self.bn1 = BatchNorm(num_filters[0])
@@ -87,6 +94,30 @@ class ResNetSE(nn.Module):
 
     def forward(self, x):
         x = self.bn1(torch.relu(self.conv1(x)))
+        remat = self.remat_blocks and self.training and \
+            torch.is_grad_enabled()
         for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = _remat(block, x) if remat else block(x)
         return x
+
+
+def _remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` under a non-reentrant checkpoint. The parameters the block
+    holds now (under `torch.func.functional_call`, the caller's cast copies)
+    go in as inputs, so the recomputation in the backward uses them and not
+    whatever the module holds by then. The block has no dropout, so the
+    recomputation sees the same batch; it writes no running statistics, the
+    first pass did."""
+    names, tensors = zip(*block.named_parameters())
+    calls = []
+
+    def run(inp, *params):
+        state = dict(zip(names, params))
+        if calls:
+            with frozen_stats(block):
+                return functional_call(block, state, (inp,))
+        calls.append(True)
+        return functional_call(block, state, (inp,))
+
+    return checkpoint(run, x, *tensors, use_reentrant=False)

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..core.layers import Conv1d, promoted
+from ..core.layers import Conv1d, Dropout, promoted
 
 
 class WNCausalConv1d(nn.Module):
@@ -46,7 +46,7 @@ class TemporalBlock(nn.Module):
         self.conv1 = WNCausalConv1d(n_inputs, n_outputs, kernel_size, dilation)
         self.conv2 = WNCausalConv1d(n_outputs, n_outputs, kernel_size,
                                     dilation)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.downsample = None
         if n_inputs != n_outputs:
             self.downsample = Conv1d(n_inputs, n_outputs, 1)

@@ -20,7 +20,8 @@ import math
 import torch
 import torch.nn as nn
 
-from ..core.layers import LayerNorm, Linear, promoted, sinusoid_position_table
+from ..core.layers import (Dropout, LayerNorm, Linear, promoted,
+                           sinusoid_position_table)
 from ..ops.fused_attention import fused_attention
 
 
@@ -42,8 +43,8 @@ class MultiHeadAttention(nn.Module):
         self.w_vs = nn.Linear(d_model, n_head * d_v, bias=False)
         self.fc = nn.Linear(n_head * d_v, d_model, bias=False)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
-        self.dropout = nn.Dropout(dropout)
-        self.attn_dropout = nn.Dropout(attn_dropout)
+        self.dropout = Dropout(dropout)
+        self.attn_dropout = Dropout(attn_dropout)
         for lin in (self.w_qs, self.w_ks, self.w_vs, self.fc):
             nn.init.xavier_uniform_(lin.weight)
 
@@ -91,7 +92,7 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = Linear(d_in, d_hid)
         self.w_2 = Linear(d_hid, d_in)
         self.layer_norm = LayerNorm(d_in, eps=1e-6)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         for lin in (self.w_1, self.w_2):
             nn.init.xavier_uniform_(lin.weight)
 
@@ -137,7 +138,7 @@ class TransformerEncoder(nn.Module):
                  dropout=0.1, n_position=200, fused=False):
         super().__init__()
         self.d_model, self.n_position = d_model, n_position
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.layer_stack = nn.ModuleList([
             EncoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout, fused)
             for _ in range(n_layers)])

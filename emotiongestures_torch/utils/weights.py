@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package.
 
-`generator_state_from_jax`, `cvae_v3_state_from_jax`, `fgd_ae_state_from_jax`
-and `skeleton_classifier_state_from_jax` take the JAX `{"params": ...,
+`generator_state_from_jax`, `cvae_v3_state_from_jax`, `fgd_ae_state_from_jax`,
+`skeleton_classifier_state_from_jax`, `motion_discriminator_state_from_jax`
+and `pose_discriminator_state_from_jax` take the JAX `{"params": ...,
 "batch_stats": ...}` trees (nested mappings of arrays; anything `np.asarray`
 reads) and return state_dicts in the reference PyTorch layout, which is the
 port's own, so `load_state_dict(strict=True)` checks the structure.
@@ -10,8 +11,11 @@ port's own, so `load_state_dict(strict=True)` checks the structure.
 A declarative (torch_key, jax_path, kind) table drives it. This is the
 port's own copy of the tables of emotiongestures_tpu/utils/torch_port.py
 (generator_mapping, cvae_v3_mapping, fgd_ae_mapping,
-skeleton_classifier_mapping, flax_table_to_torch_state); a test holds the two
-copies to the same keys and arrays. Layout kinds:
+skeleton_classifier_mapping, pose_discriminator_mapping,
+flax_table_to_torch_state); a test holds the two copies to the same keys and
+arrays. The JAX package has no table for MotionDiscriminator; its table here
+is the mapping tests/test_torch_parity.py builds against the reference.
+Layout kinds:
   dense    jax (in, out)          -> torch (out, in)
   conv2d   jax (kh, kw, in, out)  -> torch (out, in, kh, kw)
   conv1d   jax (k, in, out)       -> torch (out, in, k)
@@ -230,6 +234,24 @@ def skeleton_classifier_table(n_layers: int = 3):
     return t
 
 
+def motion_discriminator_table(n_layers: int = 2):
+    """The table for MotionDiscriminator (Models_memory.py:569-618)."""
+    t = []
+    transformer_layers(t, "encoder", ("encoder",), n_layers, "slf_attn")
+    linear(t, "fc1.0", ("fc1",))
+    seq_linears(t, "fc2", (), ("fc2_0", "fc2_1", "fc2_2", "fc2_3", "fc2_4",
+                               "fc2_out"))
+    return t
+
+
+def pose_discriminator_table(n_layers: int = 3):
+    """The table for PoseDiscriminator (Models.py:482-510)."""
+    t = []
+    transformer_layers(t, "encoder", ("encoder",), n_layers, "slf_attn")
+    seq_linears(t, "fc", (), ("fc1", "fc2"))
+    return t
+
+
 def _get(tree, path):
     for key in path:
         tree = tree[key]
@@ -264,6 +286,14 @@ def fgd_ae_state_from_jax(variables) -> dict:
 
 def skeleton_classifier_state_from_jax(variables, n_layers: int = 3) -> dict:
     return state_from_table(variables, skeleton_classifier_table(n_layers))
+
+
+def motion_discriminator_state_from_jax(variables, n_layers: int = 2) -> dict:
+    return state_from_table(variables, motion_discriminator_table(n_layers))
+
+
+def pose_discriminator_state_from_jax(variables, n_layers: int = 3) -> dict:
+    return state_from_table(variables, pose_discriminator_table(n_layers))
 
 
 def load_reference_state(module, state: dict) -> None:

@@ -72,6 +72,12 @@ def test_entry_points_default_to_cuda():
     from emotiongestures_torch.models.generator import GestureTransformer
     from emotiongestures_torch.ops.fused_mel import extract_melspectrogram
     from emotiongestures_torch.serving import GestureServer
+    from emotiongestures_torch.cli import train_emotion_gesture as train_cli
+    from emotiongestures_torch.models.discriminator import (
+        MotionDiscriminator,
+        PoseDiscriminator,
+    )
+    from emotiongestures_torch.train import gan
 
     calls = [
         lambda: GestureTransformer(n_words=8),
@@ -84,6 +90,12 @@ def test_entry_points_default_to_cuda():
         lambda: batched_onset_frontend(np.zeros((1, 16000), np.float32)),
         lambda: eval_cli.main(eval_cli.build_parser().parse_args(
             ["--synthetic", "8", "--test_batch_size", "8"])),
+        lambda: MotionDiscriminator(),
+        lambda: PoseDiscriminator(),
+        lambda: gan.create_states(gan.GANConfig(d_model=64, d_inner=128,
+                                                n_layers=1)),
+        lambda: train_cli.main(train_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--batch_size", "8"])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
