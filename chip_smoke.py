@@ -53,7 +53,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      losses, Adam moments, BatchNorm running statistics and parameters
      compared, and the same comparison with a fault planted on the card
      (torch's momentum convention in the running update) that it must
-     fail.
+     fail. The fp32 run's --model_save_path stays for phase 7;
+  7. the auxiliary trainers through `train_auxiliary.main` at full width,
+     batch 128, 512 synthetic samples, fp32: 7a the FGD autoencoder (pose
+     282, latent 512) and the skeleton classifier (d_model 512, d_inner
+     2048, 3 layers, 8 heads, 60 frames), 7b the CVAE v3 (feat_dim 512) on
+     the emotion features of phase 6's fp32 generator, loaded from its
+     directory; each 2 epochs (8 steps), then --resume to step 12. 7c the
+     eval CLI's `main` (--synthetic 256, batches of 128) on phase 6's
+     generator and the three new checkpoint directories: all four loaded,
+     finite metrics. 7d one step of each trainer at a reduced width
+     (skeleton d_model 64, CVAE feat_dim 64), batch 8, dropout off, the
+     CVAE's noise injected, on the card and on the CPU, with 6c's
+     tolerances;
+  8. the K-fold classifier through `train_audio_classifier_K_fold.main`:
+     8a EmotionNet at (128, 124) (4-stage SE-ResNet [3, 4, 6, 3] x [32,
+     64, 128, 256], MLP 65,536 -> 4096 -> ... -> 8), 512 synthetic
+     samples, batch 128, 2 epochs of fold 1 (6 steps), --preset parity
+     (fp32) and --preset fast (bf16 compute); 8b the resume contract on
+     the card (40 spectrograms of 32 x 32, 4 splits, batch 8, 4 epochs:
+     stopped mid-fold, resumed, folds 0 and 1 finish, fold 0 at step 12,
+     the checkpoint before it); 8c one classifier step at 32 x 32, batch
+     8, on the card and on the CPU, with 6c's tolerances (the SE-ResNet's
+     moments loosely). Phases 6-8: ms per step (CUDA events, the mean of
+     steps 3 onwards), samples/s, peak allocated memory and wall time per
+     trainer, and no kernel launch during training.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -63,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -79,6 +104,10 @@ from emotiongestures_torch.cli import demo  # noqa: E402
 from emotiongestures_torch.cli import (  # noqa: E402
     test_emotion_gesture_diversity_iterative as eval_cli,
 )
+from emotiongestures_torch.cli import (  # noqa: E402
+    train_audio_classifier_K_fold as kfold_cli,
+)
+from emotiongestures_torch.cli import train_auxiliary as aux_cli  # noqa: E402
 from emotiongestures_torch.cli import (  # noqa: E402
     train_emotion_gesture as train_cli,
 )
@@ -99,7 +128,15 @@ from emotiongestures_torch.serving import (  # noqa: E402
     GestureServer,
     set_fused_attention,
 )
+from emotiongestures_torch.train import classifier  # noqa: E402
+from emotiongestures_torch.train import cvae as cvae_train  # noqa: E402
+from emotiongestures_torch.train import fgd as fgd_train  # noqa: E402
 from emotiongestures_torch.train import gan  # noqa: E402
+from emotiongestures_torch.train import skeleton as skeleton_train  # noqa: E402,E501
+from emotiongestures_torch.utils.checkpoint import (  # noqa: E402
+    load_checkpoint,
+    save_checkpoint,
+)
 
 # NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, TF32 and
 # bf16 on the tensor cores, HBM3
@@ -108,6 +145,9 @@ TF32_PEAK = 495e12
 BF16_PEAK = 989e12
 HBM_BYTES_PER_S = 3.35e12
 BATCH = 1024
+# the training phases' device (6-8); a rehearsal on the CPU at small sizes
+# sets it to "cpu"
+DEVICE = "cuda"
 WAVE_SAMPLES = 64000  # 4 s at 16 kHz
 N_BATCHES = 3
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_pallas_attention.py
@@ -879,6 +919,7 @@ def phase_eval(card, counts, out_dir: Path):
 # ---------------------------------------------------------------------------
 
 TRAIN_SAMPLES, TRAIN_BATCH = 512, 128
+EPOCH_STEPS = TRAIN_SAMPLES // TRAIN_BATCH
 # each run's flags and the GANConfig fields its preset sets
 TRAIN_RUNS = {
     "fp32": (["--preset", "parity"],
@@ -904,7 +945,7 @@ ZERO_GRAD = "audio_encoder.final_conv1.bias"
 def train_once(name, extra, model_dir, epochs, resume):
     args = train_cli.build_parser().parse_args([
         "--synthetic", str(TRAIN_SAMPLES), "--batch_size", str(TRAIN_BATCH),
-        "--total_epoch", str(epochs), "--device", "cuda", "--save_every",
+        "--total_epoch", str(epochs), "--device", DEVICE, "--save_every",
         "1000", "--model_save_path", str(model_dir), *extra,
         *(["--resume"] if resume else [])])
     torch.cuda.reset_peak_memory_stats()
@@ -947,24 +988,32 @@ def train_batch(b):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def phase_train(card, profiling=False):
+def phase_train(card, work: Path, profiling=False):
+    """Phase 6. The fp32 run's --model_save_path, work / "gan_fp32", stays
+    for phase 7 (the CVAE's frozen generator and the eval's checkpoints);
+    the bf16 run's is removed."""
     results = {}
     for (name, (extra, fields)), tag in zip(TRAIN_RUNS.items(), "ab"):
         log(f"phase 6{tag} ({name}): trainer main {' '.join(extra)} "
             f"--synthetic {TRAIN_SAMPLES} --batch_size {TRAIN_BATCH} "
             f"--total_epoch 2, then --resume --total_epoch 1")
-        with tempfile.TemporaryDirectory() as model_dir:
-            gen, disc, first = train_once(name, extra, model_dir, 2, False)
-            if (gen.step, disc.step) != (8, 8):
-                raise SystemExit(f"train {name}: steps {gen.step}, "
-                                 f"{disc.step} after 2 epochs (want 8)")
-            gen, disc, resumed = train_once(name, extra, model_dir, 1, True)
-            if (gen.step, disc.step) != (12, 12):
-                raise SystemExit(f"train {name}: steps {gen.step}, "
-                                 f"{disc.step} after --resume (want 12)")
-            profile = (profile_train_step(gen, disc,
-                                          gan.GANConfig(**fields), card)
-                       if profiling else None)
+        model_dir = work / f"gan_{name}"
+        gen, disc, first = train_once(name, extra, model_dir, 2, False)
+        if (gen.step, disc.step) != (2 * EPOCH_STEPS, 2 * EPOCH_STEPS):
+            raise SystemExit(f"train {name}: steps {gen.step}, "
+                             f"{disc.step} after 2 epochs (want "
+                             f"{2 * EPOCH_STEPS})")
+        gen, disc, resumed = train_once(name, extra, model_dir, 1, True)
+        if (gen.step, disc.step) != (3 * EPOCH_STEPS, 3 * EPOCH_STEPS):
+            raise SystemExit(f"train {name}: steps {gen.step}, "
+                             f"{disc.step} after --resume (want "
+                             f"{3 * EPOCH_STEPS})")
+        profile = (profile_train_step(gen, disc, gan.GANConfig(**fields),
+                                      card)
+                   if profiling else None)
+        del gen, disc
+        if name != "fp32":
+            shutil.rmtree(model_dir)
         steady = first["step_ms"][2:]
         ms = float(np.mean(steady))
         res = {"ms_per_step": ms, "samples_per_s": TRAIN_BATCH / ms * 1e3,
@@ -1007,41 +1056,56 @@ def one_step(device, batch):
     return cfg, gs, ds, {k: float(v) for k, v in m.items()}
 
 
-def step_errors(card, cpu):
-    """Worst error of each compared quantity and the list of tolerance
-    violations, card against CPU."""
-    (cfg, g1, d1, m1), (_, g0, d0, m0) = card, cpu
+def state_errors(pairs, m1, m0, lr, loose=None, zero=None):
+    """Worst error of each compared quantity (Adam's moments also as a share
+    of their tensor's scale, `zero` left out) and the list of tolerance violations of train
+    states on the card against the CPU, with 6c's tolerances. `pairs` maps
+    a net's label to (card state, CPU state); `m1`, `m0` are the two
+    steps' losses. Parameters under the prefix `loose` take the loose
+    moments; `zero` names one whose exact gradient is zero."""
     worst, bad = {}, []
 
-    def check(what, name, got, want, rtol, atol):
+    def check(what, name, got, want, rtol, atol, share=False):
         got, want = got.detach().double().cpu(), want.detach().double()
         err = (got - want).abs()
         worst[what] = max(worst.get(what, 0.0), float(err.max()))
+        if share:
+            key = f"{what} / scale"
+            share = float(err.max() / want.abs().max().clamp(min=1e-30))
+            worst[key] = max(worst.get(key, 0.0), share)
         if bool((err > atol + rtol * want.abs()).any()):
             bad.append(f"{what} {name}")
 
     for k, v in m0.items():
         check("losses", k, torch.tensor(m1[k]), torch.tensor(v), 1e-4, 1e-6)
-    for net, (s1, s0) in {"G": (g1, g0), "D": (d1, d0)}.items():
+    for net, (s1, s0) in pairs.items():
         p1 = dict(s1.module.named_parameters())
         for name, p in s0.module.named_parameters():
-            check("params", f"{net} {name}", p1[name], p, 0.0,
-                  2.02 * cfg.lr)
+            label = f"{net} {name}".strip()
+            check("params", label, p1[name], p, 0.0, 2.02 * lr)
             for key, zero_atol in (("exp_avg", 1e-6), ("exp_avg_sq", 1e-12)):
                 want = s0.optimizer.state[p][key]
                 got = s1.optimizer.state[p1[name]][key]
                 scale = float(want.abs().max())
-                if name == ZERO_GRAD:
+                if name == zero:
                     rtol, atol = 0.0, zero_atol
-                elif name.startswith(ILL):
+                elif loose is not None and name.startswith(loose):
                     rtol, atol = 1e-3, 0.15 * scale
                 else:
                     rtol, atol = 1e-3, 1e-3 * scale
-                check(key, f"{net} {name}", got, want, rtol, atol)
+                check(key, label, got, want, rtol, atol, share=name != zero)
         b1 = dict(s1.module.named_buffers())
         for name, b in s0.module.named_buffers():
-            check("running stats", f"{net} {name}", b1[name], b, 1e-4, 1e-5)
+            check("running stats", f"{net} {name}".strip(), b1[name], b,
+                  1e-4, 1e-5)
     return worst, bad
+
+
+def step_errors(card, cpu):
+    """6c: the generator and the discriminator, card against CPU."""
+    (cfg, g1, d1, m1), (_, g0, d0, m0) = card, cpu
+    return state_errors({"G": (g1, g0), "D": (d1, d0)}, m1, m0, cfg.lr,
+                        ILL, ZERO_GRAD)
 
 
 def torch_momentum(self, mean, var):
@@ -1056,7 +1120,7 @@ def phase_train_step():
         f"{STEP_B}, dropout off, the card against the CPU")
     batch = train_batch(STEP_B)
     cpu = one_step("cpu", batch)
-    worst, bad = step_errors(one_step("cuda", batch), cpu)
+    worst, bad = step_errors(one_step(DEVICE, batch), cpu)
     log("  max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in
                                      worst.items())
         + f" ({'ok' if not bad else 'FAIL: ' + ', '.join(bad[:5])})")
@@ -1065,7 +1129,7 @@ def phase_train_step():
     honest = L.BatchNorm.update_running
     L.BatchNorm.update_running = torch.no_grad()(torch_momentum)
     try:
-        faulty = one_step("cuda", batch)
+        faulty = one_step(DEVICE, batch)
     finally:
         L.BatchNorm.update_running = honest
     fworst, fbad = step_errors(faulty, cpu)
@@ -1076,6 +1140,368 @@ def phase_train_step():
     if not caught:
         raise SystemExit("the train-step check misses torch_momentum")
     return {"max_abs_err": worst, "planted_fault_caught": caught}
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the auxiliary trainers and the K-fold audio classifier
+# ---------------------------------------------------------------------------
+
+AUX_MODELS = ("fgd", "skeleton", "cvae")
+# 7d and 8c, one step on the card against the CPU, fp32 with TF32 off, the
+# tolerances of 6c; the classifier's SE-ResNet takes 6c's loose moments
+AUX_STEP_B = 8
+AUX_SKELETON = dict(d_model=64, d_inner=128)
+AUX_FEAT_DIM = 64
+KFOLD_SAMPLES = 512
+KFOLD_PRESETS = ("parity", "fast")
+SMALL_SPEC = (32, 32)
+
+
+def assert_no_launches(what):
+    launches = (FA.launches, FM.launches, FS.launches)
+    if launches != (0, 0, 0):
+        raise SystemExit(f"{what}: kernel launches during training "
+                         f"(attention, mel, SE stage) = {launches}")
+
+
+def trainer_numbers(step_ms, batch, peak, wall_s):
+    """ms per step (CUDA events, the mean of steps 3 onwards), samples/s,
+    peak allocated bytes and wall seconds."""
+    ms = float(np.mean(step_ms[2:]))
+    return {"ms_per_step": ms, "samples_per_s": batch / ms * 1e3,
+            "peak_bytes": peak, "wall_s": wall_s, "step_ms": step_ms}
+
+
+def log_trainer(card, name, res, extra=""):
+    log(f"  [{card}] {name}: {res['ms_per_step']:.2f} ms per step (CUDA "
+        f"events, mean of steps 3 onwards; all: "
+        f"{', '.join(f'{t:.2f}' for t in res['step_ms'])}), "
+        f"{res['samples_per_s']:.1f} samples/s, peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB allocated, wall "
+        f"{res['wall_s']:.1f} s{extra}")
+
+
+def aux_once(model, work: Path, epochs, resume, extra=()):
+    args = aux_cli.build_parser().parse_args([
+        "--model", model, "--synthetic", str(TRAIN_SAMPLES), "--batch_size",
+        str(TRAIN_BATCH), "--total_epoch", str(epochs), "--device", DEVICE,
+        "--save_every", "1000", "--model_save_path", str(work / "aux"),
+        *extra, *(["--resume"] if resume else [])])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, summary = aux_cli.main(args)
+    assert_no_launches(f"auxiliary trainer {model}")
+    bad = [k for k, v in summary["metrics"].items() if not np.isfinite(v)]
+    if bad:
+        raise SystemExit(f"auxiliary trainer {model}: non-finite {bad}")
+    summary["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return state, summary
+
+
+def phase_aux(card, work: Path):
+    results = {}
+    gan_dir = work / "gan_fp32"
+    for model, tag in zip(AUX_MODELS, "aab"):
+        extra = (["--generator_checkpoint", str(gan_dir)]
+                 if model == "cvae" else [])
+        log(f"phase 7{tag} ({model}): auxiliary trainer main --model {model} "
+            f"{' '.join(extra)} --synthetic {TRAIN_SAMPLES} --batch_size "
+            f"{TRAIN_BATCH} --total_epoch 2, then --resume --total_epoch 1")
+        state, first = aux_once(model, work, 2, False, extra)
+        if state.step != 2 * EPOCH_STEPS:
+            raise SystemExit(f"{model}: step {state.step} after 2 epochs "
+                             f"(want {2 * EPOCH_STEPS})")
+        state, resumed = aux_once(model, work, 1, True, extra)
+        if state.step != 3 * EPOCH_STEPS:
+            raise SystemExit(f"{model}: step {state.step} after --resume "
+                             f"(want {3 * EPOCH_STEPS})")
+        del state
+        if model == "cvae":
+            text = (work / "aux" / "train_cvae.log").read_text()
+            if f"loaded generator checkpoint for features: {gan_dir}" \
+                    not in text:
+                raise SystemExit("cvae: phase 6's generator was not loaded")
+            log(f"  the frozen generator: phase 6's fp32 run, {gan_dir}")
+        res = trainer_numbers(first["step_ms"], TRAIN_BATCH,
+                              max(first["peak_bytes"],
+                                  resumed["peak_bytes"]), first["wall_s"])
+        res.update(resume_step_ms=resumed["step_ms"],
+                   resume_wall_s=resumed["wall_s"],
+                   metrics=resumed["metrics"])
+        log_trainer(card, model, res,
+                    f" + {resumed['wall_s']:.1f} s resumed; steps 8 -> 12; "
+                    "last metrics " + ", ".join(
+                        f"{k} {v:.5f}" for k, v in res["metrics"].items())
+                    + "; attention, mel and SE-stage launches 0")
+        results[model] = res
+    results["eval"] = phase_aux_eval(card, work)
+    results["card_vs_cpu"] = phase_aux_steps()
+    return results
+
+
+def phase_aux_eval(card, work: Path):
+    log("phase 7c: eval CLI main --synthetic 256 --test_batch_size 128 on "
+        "phase 6's generator and the three checkpoints of 7a-7b")
+    aux = work / "aux"
+    args = eval_cli.build_parser().parse_args([
+        "--synthetic", "256", "--test_batch_size", "128", "--device",
+        DEVICE, "--log_save_path", str(work / "eval_logs"),
+        "--checkpoints_folder_path", str(work / "gan_fp32"),
+        "--fgd_checkpoint", str(aux / "fgd"), "--skeleton_checkpoint",
+        str(aux / "skeleton"), "--cvae_checkpoint", str(aux / "cvae")])
+    summary = eval_cli.main(args)
+    loaded = summary["checkpoints"]
+    if None in loaded.values():
+        raise SystemExit(f"eval: not every checkpoint loaded: {loaded}")
+    bad = [k for k in METRICS if not np.isfinite(summary[k])]
+    if bad:
+        raise SystemExit(f"eval on trained nets: non-finite metrics {bad}")
+    for name, path in loaded.items():
+        log(f"  loaded {name}: {Path(path).relative_to(work)}")
+    log(f"  [{card}] " + ", ".join(f"{k} {summary[k]:.5f}"
+                                   for k in METRICS))
+    return {"checkpoints": {k: str(Path(v).relative_to(work))
+                            for k, v in loaded.items()},
+            **{k: summary[k] for k in METRICS}}
+
+
+def no_dropout(module):
+    for d in module.modules():
+        if isinstance(d, L.Dropout):
+            d.p = 0.0
+    return module
+
+
+def aux_step(name, device, inputs):
+    """One step of trainer `name` at the reduced width, dropout off, on
+    `device`; the state and the metrics."""
+    batch = {k: v.to(device) for k, v in inputs.items()}
+    if name == "fgd":
+        state = fgd_train.create_state(0, device=device)
+        no_dropout(state.module)
+        state, m = fgd_train.train_step(state, batch["pose_seq"], 1)
+    elif name == "skeleton":
+        state = skeleton_train.create_state(0, **AUX_SKELETON, device=device)
+        no_dropout(state.module)
+        state, m = skeleton_train.train_step(state, batch["pose_seq"],
+                                             batch["eid_label"], 1)
+    elif name == "cvae":
+        state = cvae_train.create_state(0, feat_dim=AUX_FEAT_DIM,
+                                        device=device)
+        no_dropout(state.module)
+        state, m = cvae_train.train_step(state, batch["features"],
+                                         batch["eid_label"], 1,
+                                         noise=batch["noise"])
+    else:
+        state = classifier.create_state(0, spec_shape=SMALL_SPEC,
+                                        device=device)
+        state, m = classifier.train_step(state, batch["spectrogram"],
+                                         batch["eid_label"], batch["alpha"])
+    return state, {k: float(v) for k, v in m.items()}
+
+
+def step_inputs(name):
+    g = torch.Generator().manual_seed(7)
+    y = torch.nn.functional.one_hot(torch.arange(AUX_STEP_B) % 8, 8).float()
+    if name == "classifier":
+        spec = torch.randn(AUX_STEP_B, *SMALL_SPEC, generator=g)
+        return {"spectrogram": spec, "eid_label": y, "alpha": torch.from_numpy(
+            classifier.class_alpha(y.numpy()))}
+    batch = train_batch(AUX_STEP_B)
+    return {"pose_seq": batch["pose_seq"], "eid_label": y,
+            "features": torch.randn(AUX_STEP_B, 60, AUX_FEAT_DIM,
+                                    generator=g),
+            "noise": torch.randn(AUX_STEP_B, 32, generator=g)}
+
+
+def compare_step(name, lr, loose_prefix=None):
+    inputs = step_inputs(name)
+    (s0, m0), (s1, m1) = (aux_step(name, d, inputs) for d in ("cpu",
+                                                                DEVICE))
+    worst, bad = state_errors({"": (s1, s0)}, m1, m0, lr, loose_prefix)
+    log(f"  {name}: max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items())
+        + f" ({'ok' if not bad else 'FAIL: ' + ', '.join(bad[:5])})")
+    if bad:
+        raise SystemExit(f"{name} train step: the card disagrees with the "
+                         "CPU")
+    return worst
+
+
+def phase_aux_steps():
+    log(f"phase 7d: one step of each auxiliary trainer, batch {AUX_STEP_B}, "
+        f"dropout off, the CVAE's noise injected (FGD full width, skeleton "
+        f"d_model {AUX_SKELETON['d_model']}, CVAE feat_dim {AUX_FEAT_DIM}), "
+        "the card against the CPU")
+    return {"fgd": compare_step("fgd", 3e-4),
+            "skeleton": compare_step("skeleton", 3e-4),
+            "cvae": compare_step("cvae", 2e-4)}
+
+
+class SmallSpectrograms:
+    """8b's in-memory dataset: (32, 32) spectrograms from a seed, one-hot
+    labels cycling through the 8 classes."""
+
+    def __init__(self, n_samples, seed):
+        r = np.random.RandomState(seed)
+        self.items = [{"spectrogram": r.randn(*SMALL_SPEC).astype(
+                           np.float32),
+                       "eid_label": np.eye(8, dtype=np.float32)[i % 8]}
+                      for i in range(n_samples)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def kfold_once(preset, work: Path):
+    args = kfold_cli.build_parser().parse_args([
+        "--synthetic", str(KFOLD_SAMPLES), "--batch_size", str(TRAIN_BATCH),
+        "--total_epoch", "2", "--max_folds", "1", "--device", DEVICE,
+        "--preset", preset, "--model_save_path",
+        str(work / f"kfold_{preset}")])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = kfold_cli.main(args)
+    wall_s = time.perf_counter() - t0
+    assert_no_launches(f"classifier {preset}")
+    if [r["fold"] for r in results] != [0]:
+        raise SystemExit(f"classifier {preset}: folds "
+                         f"{[r['fold'] for r in results]} (want [0])")
+    r = results[0]
+    want = 2 * ((KFOLD_SAMPLES - KFOLD_SAMPLES // 10) // TRAIN_BATCH)
+    if r["state"].step != want or not np.isfinite(r["test_acc"]):
+        raise SystemExit(f"classifier {preset}: step {r['state'].step} "
+                         f"(want {want}), test acc {r['test_acc']}")
+    res = trainer_numbers(r["step_ms"], TRAIN_BATCH,
+                          torch.cuda.max_memory_allocated(), wall_s)
+    res.update(test_acc=r["test_acc"], steps=r["state"].step,
+               compute_dtype=args.compute_dtype)
+    return res
+
+
+def phase_kfold_resume(work: Path):
+    log("phase 8b: the K-fold resume contract on the card: 40 (32 x 32) "
+        "spectrograms, 4 splits, batch 8, 4 epochs, eval_every 2, "
+        "max_folds 2; stop after 8 polls, resume")
+    full, test = SmallSpectrograms(40, 0), SmallSpectrograms(8, 1)
+    ckpt = work / "kfold_resume"
+    saved = {}
+
+    def checkpoint_fn(state, fold, epoch, it):
+        save_checkpoint(state, ckpt, max_to_keep=1)
+        saved.update(fold=fold, iter=it)
+
+    polls = {"n": 0}
+
+    def stopper():
+        polls["n"] += 1
+        return polls["n"] > 8
+
+    kw = dict(batch_size=8, n_splits=4, epochs=4, eval_every=2, seed=0,
+              max_folds=2, checkpoint_fn=checkpoint_fn, device=DEVICE)
+    reset_counts()
+    if classifier.train_k_fold(full, test, should_stop=stopper, **kw) != []:
+        raise SystemExit("8b: a fold finished before the stop")
+    template = classifier.create_state(0, spec_shape=SMALL_SPEC,
+                                       device=DEVICE)
+    state, ok = load_checkpoint(template, ckpt)
+    at = state.step
+    if not ok or saved.get("fold") != 0 or not 2 <= at < 12:
+        raise SystemExit(f"8b: checkpoint {ok}, {saved}, step {at}")
+    results = classifier.train_k_fold(full, test, resume_from=(state, 0),
+                                      **kw)
+    assert_no_launches("classifier resume")
+    folds = [r["fold"] for r in results]
+    if folds != [0, 1] or results[0]["state"] is not state or \
+            state.step != 12 or results[1]["state"].step != 12:
+        raise SystemExit(f"8b: folds {folds}, fold 0 at step {state.step} "
+                         "(want [0, 1], 12 and 12)")
+    log(f"  checkpoint at step {at} of fold 0; resumed: folds {folds}, "
+        f"fold 0 at step {state.step}, fold 1 at "
+        f"{results[1]['state'].step}")
+    shutil.rmtree(ckpt)
+    return {"checkpoint_step": at, "folds": folds}
+
+
+def profile_classifier_step(compute_dtype, card):
+    """With --profile: one classifier step at batch 128, (128, 124), under
+    torch.profiler; CUDA kernel time by group and the device's busy
+    share."""
+    ds = SyntheticGestureDataset(n_samples=TRAIN_BATCH, seed=1)
+    batch = next(ds.batches(TRAIN_BATCH, shuffle=False,
+                            fields=("spectrogram", "eid_label")))
+    spec, y = (torch.from_numpy(batch[k]).cuda()
+               for k in ("spectrogram", "eid_label"))
+    alpha = torch.from_numpy(classifier.class_alpha(batch["eid_label"]))
+    state = classifier.create_state(0, device="cuda")
+    for _ in range(2):  # cuDNN's first calls
+        classifier.train_step(state, spec, y, alpha.cuda(),
+                              compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        classifier.train_step(state, spec, y, alpha.cuda(),
+                              compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = kernel_split(prof)
+    busy = log_split(f"profiled classifier step ({compute_dtype}, [{card}])",
+                     wall_ms, groups, top)
+    return {"wall_ms": wall_ms, "kernel_ms": busy, "groups_ms": groups}
+
+
+def phase_kfold(card, work: Path, profiling=False):
+    results = {}
+    for preset in KFOLD_PRESETS:
+        log(f"phase 8a ({preset}): K-fold trainer main --preset {preset} "
+            f"--synthetic {KFOLD_SAMPLES} --batch_size {TRAIN_BATCH} "
+            "--total_epoch 2 --max_folds 1, EmotionNet at (128, 124)")
+        res = kfold_once(preset, work)
+        log_trainer(card, f"classifier {res['compute_dtype']}", res,
+                    f"; {res['steps']} steps; test accuracy "
+                    f"{res['test_acc']:.2f}%; attention, mel and SE-stage "
+                    "launches 0")
+        if profiling:
+            res["profile"] = profile_classifier_step(res["compute_dtype"],
+                                                     card)
+        results[preset] = res
+    results["resume"] = phase_kfold_resume(work)
+    log(f"phase 8c: one classifier step, batch {AUX_STEP_B}, spectrogram "
+        f"{SMALL_SPEC[0]} x {SMALL_SPEC[1]}, the card against the CPU")
+    results["card_vs_cpu"] = compare_step("classifier", 3e-4,
+                                          "emotion_encoder.")
+    results["fp32_vs_float64"] = classifier_float64_shares()
+    return results
+
+
+def classifier_float64_shares():
+    """8c's measurement (no gate): the same classifier step in float64 on
+    the card as the reference, and each fp32 step's (card, CPU) worst
+    Adam first moment error as a share of its tensor's scale."""
+    inputs = step_inputs("classifier")
+    state = classifier.create_state(0, spec_shape=SMALL_SPEC, device=DEVICE)
+    state.module.double()
+    classifier.train_step(state, *(inputs[k].double().to(DEVICE) for k in
+                                   ("spectrogram", "eid_label", "alpha")))
+    ref = {n: state.optimizer.state[p]["exp_avg"].cpu()
+           for n, p in state.module.named_parameters()}
+    shares = {}
+    for device in (DEVICE, "cpu"):
+        s32, _ = aux_step("classifier", device, inputs)
+        worst = max(
+            (float((s32.optimizer.state[p]["exp_avg"].cpu().double()
+                    - ref[n]).abs().max() / ref[n].abs().max()), n)
+            for n, p in s32.module.named_parameters())
+        shares[device] = {"share": worst[0], "tensor": worst[1]}
+        log(f"  fp32 on {device} against float64 on the card: exp_avg off "
+            f"by up to {worst[0]:.3e} of its scale ({worst[1]})")
+    return shares
 
 
 def main(argv) -> int:
@@ -1105,12 +1531,12 @@ def main(argv) -> int:
     for name, text in cuda_lib.build_logs.items():
         (args.out / f"nvcc_{name}.log").write_text(text)
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     attn_entry, attn_detail = phase_attention(gen)
     mel_entry = phase_mel(gen)
     # kernel 3 draws from its own generator, so the later phases see the
     # same inputs as before it was added
-    se_gen = torch.Generator(device="cuda").manual_seed(3)
+    se_gen = torch.Generator(device=DEVICE).manual_seed(3)
     se_entry, se_detail = phase_se_stage(se_gen)
     counts = {"fused_attention": 0, "mel": 0, "se_stage": 0}
     for precision in ("float32", "bfloat16"):
@@ -1119,7 +1545,11 @@ def main(argv) -> int:
     serving = [phase_serving(p, gen, card, counts, args.profile)
                for p in ("float32", "bfloat16")]
     evals = phase_eval(card, counts, args.out)
-    train = phase_train(card, args.profile)
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        train = phase_train(card, work, args.profile)
+        aux = phase_aux(card, work)
+        kfold = phase_kfold(card, work, args.profile)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -1127,12 +1557,16 @@ def main(argv) -> int:
             raise SystemExit(f"{e['name']}: not launched on the main path")
 
     detail = {"card": card, "serving": serving, "eval": evals,
-              "train": train, "se_stage": se_detail,
-              "attention": attn_detail}
+              "train": train, "aux": aux, "classifier": kfold,
+              "se_stage": se_detail, "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
-    log(json.dumps({"serving": serving, "train": {
-        k: {m: v[m] for m in ("ms_per_step", "samples_per_s", "peak_bytes")}
-        for k, v in train.items() if k in TRAIN_RUNS}}))
+    keys = ("ms_per_step", "samples_per_s", "peak_bytes", "wall_s")
+    trainers = {f"gan_{k}": v for k, v in train.items() if k in TRAIN_RUNS}
+    trainers.update({k: v for k, v in aux.items() if k in AUX_MODELS})
+    trainers.update({f"classifier_{v['compute_dtype']}": v
+                     for k, v in kfold.items() if k in KFOLD_PRESETS})
+    log(json.dumps({"serving": serving, "trainers": {
+        k: {m: v[m] for m in keys} for k, v in trainers.items()}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

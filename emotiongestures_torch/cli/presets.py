@@ -1,10 +1,11 @@
-"""--preset fast|parity for the eval CLI and the GAN trainer (a copy of
-emotiongestures_tpu/cli/presets.py's tables for those two).
+"""--preset fast|parity for the eval CLI, the GAN trainer and the K-fold
+classifier trainer (a copy of emotiongestures_tpu/cli/presets.py's tables
+for those three).
 
 `parity` (the default) keeps the reference-faithful fp32 configuration.
 `fast` expands to --precision bfloat16 --fused_attention --device_beat in
-the eval CLI, and to --compute_dtype bfloat16 --update_order g_first in the
-trainer.
+the eval CLI, to --compute_dtype bfloat16 --update_order g_first in the GAN
+trainer, and to --compute_dtype bfloat16 in the classifier trainer.
 Expansion only touches flags the user left at their parser default, so an
 explicit flag always wins over the preset (e.g. `--preset fast --precision
 float32` keeps fp32).
@@ -24,6 +25,8 @@ GAN_TRAIN_FAST = {
     "compute_dtype": "bfloat16",
     "update_order": "g_first",
 }
+
+CLASSIFIER_FAST = {"compute_dtype": "bfloat16"}
 
 
 def add_preset_flag(parser: argparse.ArgumentParser) -> None:

@@ -19,8 +19,11 @@ noise, pooled into the diversity estimate only.
 
 Runs on the card unless --device cpu. The checkpoint flags take
 reference-layout .pth files (a `module.` prefix and a `gen_dict` wrapper are
-stripped); without one, a net keeps its seeded random weights. Not ported
-yet, and refused with an error: the BEAT/TED data stack (run with
+stripped) or the checkpoint directories of the port's trainers (the newest
+`checkpoint_iteration<N>.pt`; for the generator, `<path>` or
+`<path>/generator`, so --checkpoints_folder_path may name the GAN trainer's
+--model_save_path); without one, a net keeps its seeded random weights. Not
+ported yet, and refused with an error: the BEAT/TED data stack (run with
 --synthetic N), the JAX package's orbax checkpoint directories, and more
 than one card (--num_devices, --model_parallel). Run from the command line
 with --precision float32 on the card, the CLI turns TF32 off for its process;
@@ -116,7 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "next class by U(0, overlap), see "
                              "data/synthetic.py")
     parser.add_argument("--checkpoints_folder_path", type=str, default=None,
-                        help="generator .pth (reference layout)")
+                        help="generator .pth (reference layout), or the GAN "
+                             "trainer's checkpoint directory")
     parser.add_argument("--fgd_checkpoint", type=str, default=None)
     parser.add_argument("--skeleton_checkpoint", type=str, default=None)
     parser.add_argument("--cvae_checkpoint", type=str, default=None)
@@ -165,15 +169,19 @@ class EvalNets:
     vae: EmotionCVAEv3
     dtype: torch.dtype      # the generator's and CVAE's compute dtype
     n_pre_poses: int
+    loaded: dict            # net -> the checkpoint file read, or None
 
 
-def _load(module, path, name, allow_pickle):
+def _load(module, path, name, allow_pickle, subdir=None):
+    """Load `path` into `module`; returns the file read, or None (random
+    weights) without a path."""
     if path:
-        load_reference_checkpoint(module, path, allow_pickle)
-        logging.info("loaded %s checkpoint from %s", name, path)
-    else:
-        logging.warning("no %s checkpoint: using randomly initialised "
-                        "weights", name)
+        read = load_reference_checkpoint(module, path, allow_pickle, subdir)
+        logging.info("loaded %s checkpoint from %s", name, read)
+        return str(read)
+    logging.warning("no %s checkpoint: using randomly initialised "
+                    "weights", name)
+    return None
 
 
 def build_models(args, n_words: int, device) -> EvalNets:
@@ -193,17 +201,21 @@ def build_models(args, n_words: int, device) -> EvalNets:
         d_inner=args.latent_dim, n_layers=3, n_head=8, d_k=64, d_v=64,
         n_position=60, device=device)
     vae = EmotionCVAEv3(feat_dim=args.d_model, device=device)
-    _load(gen, args.checkpoints_folder_path, "generator", args.allow_pickle)
-    _load(fgd, args.fgd_checkpoint, "FGD", args.allow_pickle)
-    _load(skeleton, args.skeleton_checkpoint, "skeleton classifier",
-          args.allow_pickle)
-    _load(vae, args.cvae_checkpoint, "emotion CVAE", args.allow_pickle)
+    loaded = {
+        "generator": _load(gen, args.checkpoints_folder_path, "generator",
+                           args.allow_pickle, subdir="generator"),
+        "fgd": _load(fgd, args.fgd_checkpoint, "FGD", args.allow_pickle),
+        "skeleton": _load(skeleton, args.skeleton_checkpoint,
+                          "skeleton classifier", args.allow_pickle),
+        "cvae": _load(vae, args.cvae_checkpoint, "emotion CVAE",
+                      args.allow_pickle),
+    }
     dtype = torch.float32
     if args.precision == "bfloat16":
         dtype = torch.bfloat16
         prec.bf16_params_(gen)
         prec.cast_all_(vae, dtype)
-    return EvalNets(gen, fgd, skeleton, vae, dtype, args.n_pre_poses)
+    return EvalNets(gen, fgd, skeleton, vae, dtype, args.n_pre_poses, loaded)
 
 
 @torch.no_grad()
@@ -361,6 +373,7 @@ def test_model(args, batches, n_words: int, noise=None):
         "emotion_acc": avg_acc,
         "diversity": div_score,
         "diversity_interval": div_interval,
+        "checkpoints": nets.loaded,
         "timings": {
             "device": str(device),
             "eval_batch_calls": len(batch_ms),

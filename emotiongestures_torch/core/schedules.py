@@ -7,6 +7,7 @@ emotiongestures_tpu/core/schedules.py).
     (train_audio_classifier_K_fold.py:132)
   * the staged LR ladder (adjust_lr, test_emotion_gesture_diversity_
     iterative.py:64-78), per epoch and per update
+  * the skeleton classifier's linear warmup
 """
 from __future__ import annotations
 
@@ -42,6 +43,13 @@ def staged_step_lr(init_lr: float,
     runs at ladder(t // steps_per_epoch)."""
     ladder = staged_lr(init_lr)
     return lambda count: ladder(count // max(steps_per_epoch, 1))
+
+
+def linear_warmup(lr: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule(0, lr, steps) as a function of the update
+    count: update t (from 0) runs at lr * min(t, steps) / steps, so update
+    0 runs at lr 0 while Adam's moments still move."""
+    return lambda count: lr * min(count, steps) / steps
 
 
 def adam(params: Iterable[torch.nn.Parameter], lr: float = 3e-4,

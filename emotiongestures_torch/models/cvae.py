@@ -13,7 +13,8 @@ import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
-from ..core.layers import BatchNorm, Conv1d, ConvTranspose1d, Linear, promoted
+from ..core.layers import (BatchNorm, Conv1d, ConvTranspose1d, Dropout,
+                           Linear, promoted)
 
 
 def _lrelu():
@@ -33,13 +34,13 @@ class EmotionCVAEv3(nn.Module):
             cin = ch
         self.Encoder = nn.Sequential(*enc)
         self.Posterior_Y_embedding = nn.Sequential(
-            Linear(n_emotions, 16), nn.Dropout(0.2), Linear(16, 32))
-        self.fc_mu = nn.Sequential(Linear(feat_dim, 128), nn.Dropout(0.2),
+            Linear(n_emotions, 16), Dropout(0.2), Linear(16, 32))
+        self.fc_mu = nn.Sequential(Linear(feat_dim, 128), Dropout(0.2),
                                    Linear(128, latent_dim))
-        self.fc_var = nn.Sequential(Linear(feat_dim, 128), nn.Dropout(0.2),
+        self.fc_var = nn.Sequential(Linear(feat_dim, 128), Dropout(0.2),
                                     Linear(128, latent_dim))
         self.fusion_z_posterior = nn.Sequential(
-            Linear(latent_dim + 32, 128), nn.Dropout(0.2),
+            Linear(latent_dim + 32, 128), Dropout(0.2),
             Linear(128, 4 * (feat_dim // 4)))
         self.Decoder = nn.Sequential(
             ConvTranspose1d(4, 8, 3, stride=2, padding=1, output_padding=1),

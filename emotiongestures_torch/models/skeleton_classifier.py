@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
-from ..core.layers import Linear
+from ..core.layers import Dropout, Linear
 from ..nn.transformer import TransformerEncoder
 
 
@@ -27,7 +27,7 @@ class _PriorEncoder(nn.Module):
     def __init__(self, pose_dim: int, d_model: int):
         super().__init__()
         self.fc1 = Linear(pose_dim, d_model)
-        self.dropout = nn.Dropout(0.2)
+        self.dropout = Dropout(0.2)
         self.fc2 = Linear(d_model, d_model)
 
     def forward(self, x):

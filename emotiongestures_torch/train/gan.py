@@ -33,7 +33,7 @@ from ..core.layers import dropout_generator, frozen_stats
 from ..core.precision import compute_params
 from ..models.discriminator import MotionDiscriminator, calc_motion
 from ..models.generator import GestureTransformer
-from .state import TrainState
+from .state import TrainState, eval_mode
 
 # the compute dtype of cfg.compute_dtype; None is no cast: the modules'
 # own dtype, fp32 as built
@@ -257,18 +257,12 @@ def train_steps(gen_state: TrainState, disc_state: TrainState,
         name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
 
 
-@torch.no_grad()
 def eval_step(gen_state: TrainState, batch: dict, cfg: GANConfig):
     """The generator in eval mode on `batch`: its poses and the mean
     per-frame l2 distance to the target."""
-    gen = gen_state.module
-    was_training = gen.training
-    gen.eval()
-    try:
-        target = batch["pose_seq"]
+    target = batch["pose_seq"]
+    with eval_mode(gen_state.module) as gen:
         pred = gen(batch["spectrogram"], batch["text"],
                    target[:, : cfg.prior_frames])[0]
-    finally:
-        gen.train(was_training)
     l2 = torch.linalg.vector_norm(target - pred, dim=-1).mean()
     return {"pred": pred, "l2": l2}

@@ -9,6 +9,7 @@ Adam's moments; `apply_gradients` updates all of them in place and advances
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
@@ -25,14 +26,27 @@ class TrainState:
     # update count -> lr, evaluated before the count advances (optax's
     # scale_by_learning_rate); None keeps the optimizer's lr
     lr_schedule: Optional[Callable[[int], float]] = None
+    # > 0: optax's clip_by_global_norm on the raw gradients, before the
+    # optimizer's coupled L2
+    grad_clip: float = 0.0
+
+    def __post_init__(self):
+        if self.grad_clip < 0:
+            raise ValueError(f"grad_clip must be >= 0 (0 disables), got "
+                             f"{self.grad_clip}")
 
     def apply_gradients(self, grads: Iterable[Optional[torch.Tensor]]):
         """One optimizer update. `grads` follows `module.parameters()`; a
         None is a zero gradient, as JAX gives a parameter the loss does not
         reach (Adam still moves it by its moments). Gradients of another
         dtype (bf16 under grad_dtype="bfloat16") are upcast here."""
-        for p, g in zip(self.module.parameters(), grads):
-            p.grad = torch.zeros_like(p) if g is None else g.to(p.dtype)
+        params = list(self.module.parameters())
+        grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
+                 for p, g in zip(params, grads)]
+        if self.grad_clip > 0:
+            grads = clip_by_global_norm(grads, self.grad_clip)
+        for p, g in zip(params, grads):
+            p.grad = g
         if self.lr_schedule is not None:
             lr = self.lr_schedule(self.step)
             for group in self.optimizer.param_groups:
@@ -41,6 +55,25 @@ class TrainState:
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
         return self
+
+    def minimize(self, loss: torch.Tensor):
+        """One update on the gradient of `loss` with respect to the
+        module's parameters."""
+        return self.apply_gradients(torch.autograd.grad(
+            loss, list(self.module.parameters()), allow_unused=True))
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """`module` in eval mode, with no autograd, for the duration; its mode
+    before is put back."""
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            yield module
+    finally:
+        module.train(was_training)
 
 
 def finite_check(obj) -> bool:
@@ -52,3 +85,14 @@ def finite_check(obj) -> bool:
         obj = itertools.chain(obj.parameters(), obj.buffers())
     flags = [torch.isfinite(t).all() for t in obj if t.is_floating_point()]
     return bool(torch.stack(flags).all()) if flags else True
+
+
+def clip_by_global_norm(grads: list, max_norm: float) -> list:
+    """optax.clip_by_global_norm: with n the l2 norm of all of `grads`
+    together, each g becomes g / n * max_norm when n >= max_norm and stays
+    as it is otherwise. No epsilon (torch.nn.utils.clip_grad_norm_ divides
+    by n + 1e-6). No host sync: the choice is a torch.where."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]

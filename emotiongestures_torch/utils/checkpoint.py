@@ -285,19 +285,35 @@ def latest_step(directory) -> int | None:
     return max(steps) if steps else None
 
 
+def _read(directory, step: int) -> dict:
+    path = Path(directory).absolute() / f"checkpoint_iteration{step}.pt"
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_model(module, directory, step: int | None = None) -> Path:
+    """Load the model of a checkpoint into `module` (strict=True), the
+    newest when `step` is None; no optimizer state is read. Returns the
+    file. For a frozen or evaluated network."""
+    directory = Path(directory).absolute()
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+    module.load_state_dict(_read(directory, step)["model"], strict=True)
+    return directory / f"checkpoint_iteration{step}.pt"
+
+
 def load_checkpoint(state, directory, step: int | None = None):
     """Restore a checkpoint into `state` in place (the newest when `step`
     is None). Returns (state, loaded?). The model's state_dict loads with
     strict=True; the optimizer's loads when it matches the state's
     optimizer, else the fresh one is kept with a warning (a checkpoint
     read with another optimizer config)."""
-    directory = Path(directory).absolute()
     if step is None:
         step = latest_step(directory)
         if step is None:
             return state, False
-    path = directory / f"checkpoint_iteration{step}.pt"
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    raw = _read(directory, step)
     state.module.load_state_dict(raw["model"], strict=True)
     state.step = int(raw["step"])
     try:

@@ -1,19 +1,21 @@
 """Weights carried across from the JAX package.
 
 `generator_state_from_jax`, `cvae_v3_state_from_jax`, `fgd_ae_state_from_jax`,
-`skeleton_classifier_state_from_jax`, `motion_discriminator_state_from_jax`
-and `pose_discriminator_state_from_jax` take the JAX `{"params": ...,
+`skeleton_classifier_state_from_jax`, `emotion_net_state_from_jax`,
+`disnet_state_from_jax`, `motion_discriminator_state_from_jax` and
+`pose_discriminator_state_from_jax` take the JAX `{"params": ...,
 "batch_stats": ...}` trees (nested mappings of arrays; anything `np.asarray`
 reads) and return state_dicts in the reference PyTorch layout, which is the
 port's own, so `load_state_dict(strict=True)` checks the structure.
-`load_reference_checkpoint` reads such a state_dict from a `.pth` file.
+`load_reference_checkpoint` reads such a state_dict from a `.pth` file, or
+the model of the newest checkpoint in a directory the port's trainers wrote.
 
 A declarative (torch_key, jax_path, kind) table drives it. This is the
 port's own copy of the tables of emotiongestures_tpu/utils/torch_port.py
 (generator_mapping, cvae_v3_mapping, fgd_ae_mapping,
-skeleton_classifier_mapping, pose_discriminator_mapping,
-flax_table_to_torch_state); a test holds the two copies to the same keys and
-arrays. The JAX package has no table for MotionDiscriminator; its table here
+skeleton_classifier_mapping, emotion_net_mapping, disnet_mapping,
+pose_discriminator_mapping, flax_table_to_torch_state); a test holds the two
+copies to the same keys and arrays. The JAX package has no table for MotionDiscriminator; its table here
 is the mapping tests/test_torch_parity.py builds against the reference.
 Layout kinds:
   dense    jax (in, out)          -> torch (out, in)
@@ -33,6 +35,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .checkpoint import latest_step, load_model
 
 TO_TORCH = {
     "raw": lambda x: np.asarray(x),
@@ -234,6 +238,25 @@ def skeleton_classifier_table(n_layers: int = 3):
     return t
 
 
+def emotion_net_table():
+    """The table for EmotionNet (model/audio_emotion_classifer.py:17-49):
+    the 4-stage SE-ResNet, the misspelled `emotion_eocder_fc` MLP and
+    `last_fc`."""
+    t = []
+    resnet_se(t, "emotion_encoder", ("emotion_encoder",), (3, 4, 6, 3))
+    seq_linears(t, "emotion_eocder_fc", (),
+                ("fc0", "fc1", "fc2", "fc3", "fc4"))
+    linear(t, "last_fc", ("last_fc",))
+    return t
+
+
+def disnet_table():
+    """The table for DisNet (model/audio_emotion_classifer.py:51-70)."""
+    t = []
+    seq_linears(t, "dis_fc", (), ("fc1", "fc2", "fc3"))
+    return t
+
+
 def motion_discriminator_table(n_layers: int = 2):
     """The table for MotionDiscriminator (Models_memory.py:569-618)."""
     t = []
@@ -288,6 +311,14 @@ def skeleton_classifier_state_from_jax(variables, n_layers: int = 3) -> dict:
     return state_from_table(variables, skeleton_classifier_table(n_layers))
 
 
+def emotion_net_state_from_jax(variables) -> dict:
+    return state_from_table(variables, emotion_net_table())
+
+
+def disnet_state_from_jax(variables) -> dict:
+    return state_from_table(variables, disnet_table())
+
+
 def motion_discriminator_state_from_jax(variables, n_layers: int = 2) -> dict:
     return state_from_table(variables, motion_discriminator_table(n_layers))
 
@@ -312,21 +343,34 @@ def load_reference_state(module, state: dict) -> None:
     module.load_state_dict({k: state[k] for k in own}, strict=True)
 
 
-def load_reference_checkpoint(module, path, allow_pickle: bool = False):
-    """Load a reference-layout `.pth` file into `module`: a plain state_dict,
-    or the reference's rich dict whose `gen_dict` holds it
-    (utils/train_utils.py:168-213), through `load_reference_state`.
+def load_reference_checkpoint(module, path, allow_pickle: bool = False,
+                              subdir: str | None = None) -> Path:
+    """Load weights into `module` from `path` and return the file read.
 
+    A file is a reference-layout `.pth`: a plain state_dict, or the
+    reference's rich dict whose `gen_dict` holds it
+    (utils/train_utils.py:168-213), through `load_reference_state`.
     Tensors-only loading (`weights_only=True`) is the rule; a file that
     pickles other objects loads only with `allow_pickle=True`, since
-    unpickling runs code from the file. A directory is the JAX package's
-    orbax format, which the port does not read."""
+    unpickling runs code from the file.
+
+    A directory is one of the port's trainers' checkpoint directories: the
+    newest `checkpoint_iteration<N>.pt` in `path`, else in `path/subdir`
+    (the GAN trainer writes its generator under `<model_save_path>/
+    generator`), loads its "model" state_dict with strict=True. A directory
+    without one is the JAX package's orbax format, which the port does not
+    read."""
     p = Path(path)
     if p.is_dir():
+        for cand in [p] + ([p / subdir] if subdir else []):
+            step = latest_step(cand)
+            if step is not None:
+                return load_model(module, cand, step)
         raise ValueError(
-            f"{p} is a directory: orbax checkpoints of the JAX package are "
-            "not read by the PyTorch port; give a reference-layout .pth "
-            "state_dict file")
+            f"{p} is a directory without checkpoint_iteration<N>.pt files: "
+            "orbax checkpoints of the JAX package are not read by the "
+            "PyTorch port; give a reference-layout .pth state_dict file or "
+            "a directory the port's trainers wrote")
     try:
         raw = torch.load(p, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as exc:
@@ -339,3 +383,4 @@ def load_reference_checkpoint(module, path, allow_pickle: bool = False):
     if isinstance(raw, dict) and "gen_dict" in raw:
         raw = raw["gen_dict"]
     load_reference_state(module, raw)
+    return p

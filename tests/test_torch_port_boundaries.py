@@ -78,6 +78,12 @@ def test_entry_points_default_to_cuda():
         PoseDiscriminator,
     )
     from emotiongestures_torch.train import gan
+    from emotiongestures_torch.cli import train_auxiliary as aux_cli
+    from emotiongestures_torch.cli import (
+        train_audio_classifier_K_fold as kfold_cli,
+    )
+    from emotiongestures_torch.models.emotion_net import DisNet, EmotionNet
+    from emotiongestures_torch.train import classifier, cvae, fgd, skeleton
 
     calls = [
         lambda: GestureTransformer(n_words=8),
@@ -95,6 +101,17 @@ def test_entry_points_default_to_cuda():
         lambda: gan.create_states(gan.GANConfig(d_model=64, d_inner=128,
                                                 n_layers=1)),
         lambda: train_cli.main(train_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--batch_size", "8"])),
+        lambda: EmotionNet(spec_shape=(32, 32)),
+        lambda: DisNet(),
+        lambda: fgd.create_state(),
+        lambda: skeleton.create_state(d_model=16, d_inner=32),
+        lambda: cvae.create_state(feat_dim=16),
+        lambda: classifier.create_state(spec_shape=(32, 32)),
+        lambda: classifier.train_k_fold([], []),
+        lambda: aux_cli.main(aux_cli.build_parser().parse_args(
+            ["--model", "fgd", "--synthetic", "8", "--batch_size", "8"])),
+        lambda: kfold_cli.main(kfold_cli.build_parser().parse_args(
             ["--synthetic", "8", "--batch_size", "8"])),
     ]
     for call in calls:

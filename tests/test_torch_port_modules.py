@@ -176,7 +176,7 @@ def test_cvae_posterior_stats_match_jax(cvae_pair):
 def test_weight_tables_agree_with_jax_package():
     """The port's copy of the weight tables gives the same keys and arrays
     as emotiongestures_tpu/utils/torch_port.py (generator, CVAE, FGD
-    autoencoder, skeleton classifier)."""
+    autoencoder, skeleton classifier, EmotionNet, DisNet)."""
     gen = JaxGen(n_words=16, d_model=64, d_inner=128, n_layers=2, n_head=2,
                  d_k=32, d_v=32)
     gv = gen.init(jax.random.PRNGKey(0), jnp.zeros((1, 128, 124)),
@@ -205,9 +205,23 @@ def test_weight_tables_agree_with_jax_package():
     fv = JaxFGD().init(jax.random.PRNGKey(3), pose)
     sv = JaxSkeleton(d_model=64, d_inner=128, n_layers=2, n_head=2, d_k=32,
                      d_v=32).init(jax.random.PRNGKey(4), pose)
+    from emotiongestures_tpu.models.emotion_net import DisNet as JaxDisNet
+    from emotiongestures_tpu.models.emotion_net import EmotionNet as JaxNet
+    from emotiongestures_tpu.utils import torch_port as tp
+
+    # the tables do not depend on the spectrogram's size: (32, 32) keeps
+    # fc0 at 4096 x 4096
+    ev = JaxNet().init(jax.random.PRNGKey(5), jnp.zeros((1, 32, 32)))
+    dv = JaxDisNet().init(jax.random.PRNGKey(6), jnp.zeros((1, 128)))
+    assert W.emotion_net_table() == tp.emotion_net_mapping()
+    assert W.disnet_table() == tp.disnet_mapping()
     pairs = [(W.fgd_ae_state_from_jax(fv), flax_fgd_ae_to_torch_state(fv)),
              (W.skeleton_classifier_state_from_jax(sv, n_layers=2),
-              flax_skeleton_classifier_to_torch_state(sv, n_layers=2))]
+              flax_skeleton_classifier_to_torch_state(sv, n_layers=2)),
+             (W.emotion_net_state_from_jax(ev),
+              tp.flax_emotion_net_to_torch_state(ev)),
+             (W.disnet_state_from_jax(dv),
+              tp.flax_table_to_torch_state(dv, tp.disnet_mapping()))]
     for ours, theirs in pairs:
         assert list(ours) == list(theirs)
         for k in theirs:

@@ -48,6 +48,7 @@ FROM_TORCH = {
     "conv1d": lambda t: np.transpose(t, (2, 1, 0)),
     "dense1x1": lambda t: t[:, :, 0].T,
     "g": lambda t: t.reshape(-1),
+    "convT1d": lambda t: np.transpose(t, (2, 0, 1))[::-1],
 }
 
 # a small generator: one transformer layer, d_model 64 (the audio
@@ -101,8 +102,11 @@ def motion_discriminator_table(n_layers=2):
 
 
 def jax_variables(module, table):
-    """The flax variables tree holding `module`'s weights."""
-    sd = {k: v.detach().cpu().numpy()
+    """The flax variables tree holding copies of `module`'s weights. Copies:
+    JAX on the CPU may alias a numpy buffer, and a view of the module's
+    tensors would then change under a JAX step still in flight when the
+    port's optimizer updates them in place."""
+    sd = {k: v.detach().cpu().numpy().copy()
           for k, v in module.state_dict().items()}
     assert {k for k, _, _ in table} == set(sd), "table and module differ"
     tree = {}
@@ -272,3 +276,21 @@ def assert_counts(snap, jstate, n):
     assert snap["step"] == int(jstate.step) == n
     assert snap["adam_count"] == {n}
     assert int(np.asarray(adam_state(jstate.opt_state).count)) == n
+
+
+class TinySpectrograms:
+    """An in-memory stand-in for the synthetic set in the classifier's
+    tests: `shape` spectrograms ((32, 32): EmotionNet's fc0 is then
+    4096 x 4096), one-hot labels cycling through the 8 classes."""
+
+    def __init__(self, n_samples, seed=0, shape=(32, 32), **_):
+        r = np.random.RandomState(seed)
+        self.items = [{"spectrogram": r.randn(*shape).astype(np.float32),
+                       "eid_label": np.eye(8, dtype=np.float32)[i % 8]}
+                      for i in range(n_samples)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
