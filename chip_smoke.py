@@ -77,7 +77,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      8, on the card and on the CPU, with 6c's tolerances (the SE-ResNet's
      moments loosely). Phases 6-8: ms per step (CUDA events, the mean of
      steps 3 onwards), samples/s, peak allocated memory and wall time per
-     trainer, and no kernel launch during training.
+     trainer, and no kernel launch during training;
+  9. the real-data stack, store-fed, in one temp directory: 9a a BEAT-shaped
+     clip store from a numpy seed (68 clips of 64 s: 16 kHz audio_raw, no
+     audio_feat, 94 joints at 15 fps, a timed word every ~0.3 s, eids over
+     all 8 classes) through `DataPreprocessor` twice, the 'pallas'
+     frontend (the mel kernel, one launch per clip) and 'xla' (its plain
+     version): 2108 windows each, spectrograms within 0.08 dB, every other
+     field equal, the preprocessing wall of each; 9b the eval CLI's `main`
+     on that store (--preset fast, 2 batches of 1024, 2 diversity passes):
+     finite metrics, 6 attention launches per eval_batch, every batch
+     through the native gather, vocab_all.pkl written and reloaded, its
+     eval_batch ms, wall and data wait beside phase 5's; 9c the GAN
+     trainer's `main` on the store at full width (--preset fast, batch
+     128, one epoch: 16 steps, the vocabulary's words): finite losses, no
+     kernel launch, ms per step beside phase 6b's, and with --profile the
+     card's busy share over traced steps 4-8; 9d the FGD trainer (2 steps)
+     and the K-fold trainer (--max_folds 1, one epoch: 3 steps) on the
+     store's first 217 windows as train, val and test: finite losses.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -119,9 +136,18 @@ from emotiongestures_torch.ops import fused_attention as FA  # noqa: E402
 from emotiongestures_torch.ops import fused_mel as FM  # noqa: E402
 from emotiongestures_torch.ops import fused_se_stage as FS  # noqa: E402
 from emotiongestures_torch.ops import mel as M  # noqa: E402
+from emotiongestures_torch.data import dataset as dataset_mod  # noqa: E402
+from emotiongestures_torch.data.preprocessing import (  # noqa: E402
+    DataPreprocessor,
+)
+from emotiongestures_torch.data.store import (  # noqa: E402
+    GestureStore,
+    GestureStoreWriter,
+)
 from emotiongestures_torch.data.synthetic import (  # noqa: E402
     SyntheticGestureDataset,
 )
+from emotiongestures_torch.data.vocab import Vocab, build_vocab  # noqa: E402
 from emotiongestures_torch.nn import transformer as T  # noqa: E402
 from emotiongestures_torch.nn.resnet_se import SEBasicBlock  # noqa: E402
 from emotiongestures_torch.serving import (  # noqa: E402
@@ -1504,6 +1530,306 @@ def classifier_float64_shares():
     return shares
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the real-data stack, store-fed
+# ---------------------------------------------------------------------------
+
+# a BEAT-shaped clip store: 68 clips of 64 s, 16 kHz audio, 94 joints at
+# 15 fps (pose 282), a timed word every ~0.3 s, eids over all 8 classes
+STORE_CLIPS, CLIP_S, CLIP_FPS, CLIP_JOINTS = 68, 64, 15, 94
+STORE_WORDS = 300
+N_POSES, STRIDE = 60, 30
+WINDOWS_PER_CLIP = (CLIP_S * CLIP_FPS - N_POSES) // STRIDE + 1  # 31
+# 9d's store: the first 7 clips' windows (217), so that the FGD trainer
+# takes 2 steps of 128 in 2 epochs and the K-fold trainer's fold 1 (train
+# and val stores together, 434 windows) 3 steps in one epoch
+SMALL_CLIPS = 7
+STORE_BATCH = 128
+SPEC_DB_TOL = 0.08  # dB, tests/test_preprocessing.py:116-160
+EID_INDEX = (1, 65, 73, 81, 87, 95, 103, 111)  # one per _EID_BOUNDS range
+
+
+def make_clip_store(path: Path, n_clips: int, seed: int = 0):
+    """Clip records as the preprocessor reads them, from a numpy seed: no
+    audio_feat (the spectrogram comes from audio_raw)."""
+    rng = np.random.RandomState(seed)
+    words = [f"word{k}" for k in range(STORE_WORDS)]
+    n_frames = CLIP_S * CLIP_FPS
+    t = np.arange(n_frames, dtype=np.float64)[:, None, None] / CLIP_FPS
+    ts = np.arange(CLIP_S * M.SR) / M.SR
+    with GestureStoreWriter(path) as w:
+        for i in range(n_clips):
+            rest = rng.randn(1, CLIP_JOINTS, 3) * 0.3
+            freq = rng.uniform(0.3, 2.0, (1, CLIP_JOINTS, 3))
+            phase = rng.uniform(0, 2 * np.pi, (1, CLIP_JOINTS, 3))
+            skel = rest + 0.05 * np.sin(2 * np.pi * freq * t + phase)
+            # speech-like: broadband noise in 4 Hz syllable bursts
+            envelope = np.clip(np.sin(2 * np.pi * 4.0 * ts), 0, None) ** 2
+            audio = rng.randn(len(ts)) * (0.05 + envelope)
+            starts = np.arange(0.1, CLIP_S - 0.3, 0.3) \
+                + rng.uniform(0, 0.05)
+            eid = EID_INDEX[i % 8]
+            w.append({
+                "skeletons_3d": skel.astype(np.float32),
+                "audio_raw": audio.astype(np.float32),
+                "words": [[words[rng.randint(STORE_WORDS)], float(s),
+                           float(s + 0.2)] for s in starts],
+                "aux_info": {"vid": f"clip{i}",
+                             "eid": f"1_speaker_0_{eid}_{eid}",
+                             "start_frame_no": 0, "end_frame_no": n_frames,
+                             "start_time": 0.0, "end_time": float(CLIP_S)},
+            })
+
+
+def preprocess(clips: Path, out: Path, frontend: str):
+    pre = DataPreprocessor(clips, out, n_poses=N_POSES,
+                           subdivision_stride=STRIDE,
+                           pose_resampling_fps=CLIP_FPS,
+                           spectrogram_frontend=frontend, device=DEVICE)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, n = pre.run()
+    return n, time.perf_counter() - t0, FM.launches
+
+
+def phase_preprocess(card, work: Path, counts):
+    log(f"phase 9a: DataPreprocessor over a clip store of {STORE_CLIPS} "
+        f"clips of {CLIP_S} s (16 kHz audio, {CLIP_JOINTS} joints at "
+        f"{CLIP_FPS} fps, no audio_feat), n_poses {N_POSES}, stride "
+        f"{STRIDE}: the 'pallas' frontend (the mel kernel) against 'xla' "
+        "(its plain version)")
+    clips = work / "clips"
+    make_clip_store(clips, STORE_CLIPS)
+    runs = {}
+    for frontend, out in (("pallas", work / "beat" / "test_cache"),
+                          ("xla", work / "xla" / "test_cache")):
+        runs[frontend] = preprocess(clips, out, frontend)
+    (n, wall, launches), (n_xla, wall_xla, launches_xla) = \
+        runs["pallas"], runs["xla"]
+    want = STORE_CLIPS * WINDOWS_PER_CLIP
+    if n != want or n_xla != want:
+        raise SystemExit(f"9a: {n} and {n_xla} windows (want {want})")
+    if launches != STORE_CLIPS or launches_xla != 0:
+        raise SystemExit(f"9a: mel launches {launches} and {launches_xla} "
+                         f"(want one per clip, {STORE_CLIPS}, and 0)")
+    counts["mel"] += launches
+    kernel, plain = (GestureStore(work / "beat" / "test_cache"),
+                     GestureStore(work / "xla" / "test_cache"))
+    err = 0.0
+    for i in range(n):
+        a, b = kernel[i], plain[i]
+        diff = np.abs(a.pop("spectrogram").astype(np.float32)
+                      - b.pop("spectrogram").astype(np.float32)).max()
+        err = max(err, float(diff))
+        if diff > SPEC_DB_TOL or a.keys() != b.keys() or any(
+                not np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+                else a[k] != b[k] for k in a):
+            raise SystemExit(f"9a: window {i} differs between the frontends "
+                             f"(spectrogram {diff:.4f} dB, atol "
+                             f"{SPEC_DB_TOL})")
+    plain.close()
+    shutil.rmtree(work / "xla")
+    size = kernel.offsets[-1]
+    kernel.close()
+    shutil.rmtree(clips)
+    log(f"  [{card}] {n} windows ({size / 1e6:.1f} MB) from each frontend; "
+        f"spectrograms within {err:.4f} dB (atol {SPEC_DB_TOL}), every other "
+        f"field equal; mel launches {launches} = one per clip")
+    log(f"  [{card}] preprocessing wall: 'pallas' {wall:.2f} s, 'xla' "
+        f"{wall_xla:.2f} s ({STORE_CLIPS} clips, host window arithmetic and "
+        "store writes included)")
+    return {"windows": n, "bytes": int(size), "spec_max_abs_db": err,
+            "mel_launches": launches, "wall_s": {"pallas": wall,
+                                                 "xla": wall_xla}}
+
+
+def phase_store_eval(card, work: Path, counts, synthetic):
+    log(f"phase 9b: eval CLI main on the store, --test_batch_size {BATCH} "
+        "--preset fast --num_diversity_passes 2 (no --synthetic)")
+    data = work / "beat" / "test"
+    args = eval_cli.build_parser().parse_args([
+        "--test_data_path", str(data), "--test_batch_size", str(BATCH),
+        "--preset", "fast", "--num_diversity_passes", "2", "--device",
+        DEVICE, "--log_save_path", str(work / "eval_logs")])
+    reset_counts()
+    dataset_mod.native_batches = dataset_mod.exact_batches = 0
+    summary = eval_cli.main(args)
+    n_attn = FA.launches
+    timings = summary["timings"]
+    calls = timings["eval_batch_calls"]
+    batches = (STORE_CLIPS * WINDOWS_PER_CLIP) // BATCH
+    bad = [k for k in METRICS if not np.isfinite(summary[k])]
+    if bad:
+        raise SystemExit(f"9b: non-finite metrics {bad}")
+    if calls != 2 * batches or n_attn != 6 * calls:
+        raise SystemExit(f"9b: {calls} eval_batch calls (want "
+                         f"{2 * batches}), attention launches {n_attn} "
+                         f"(want {6 * calls})")
+    native = (dataset_mod.native_batches, dataset_mod.exact_batches)
+    if native != (batches, 0):
+        raise SystemExit(f"9b: (native, exact) batches {native} (want "
+                         f"({batches}, 0))")
+    counts["fused_attention"] += n_attn
+    vocab_path = data.parent / "vocab_all.pkl"
+    store = GestureStore(str(data) + "_cache")
+    scanned = build_vocab("words", [store])
+    reloaded = Vocab.load(vocab_path)
+    store.close()
+    if reloaded.word2index != scanned.word2index or \
+            reloaded.n_words != scanned.n_words:
+        raise SystemExit("9b: vocab_all.pkl does not reload to the store's "
+                         "vocabulary")
+    ms = timings["eval_batch_ms"]
+    ref = synthetic["timings"]
+    log(f"  [{card}] store: " + ", ".join(
+        f"{k} {summary[k]:.5f}" for k in METRICS))
+    log(f"  [{card}] store: eval_batch {np.mean(ms[1:]):.1f} ms per call of "
+        f"{BATCH} rows (CUDA events, calls 2-{calls}; all: "
+        f"{', '.join(f'{v:.1f}' for v in ms)}); attention launches {n_attn} "
+        f"= 6 x {calls}; {batches} batches, all through the native gather; "
+        f"eval wall {timings['wall_s']:.2f} s, of which waiting for batches "
+        f"{timings['data_wait_s']:.2f} s, beat {timings['beat_s']:.2f} s, "
+        f"Frechet + diversity {timings['frechet_diversity_s']:.2f} s; "
+        f"vocab_all.pkl reloads ({reloaded.n_words} words)")
+    log(f"  [{card}] phase 5 (synthetic, same flags): eval_batch "
+        f"{np.mean(ref['eval_batch_ms'][1:]):.1f} ms, wall "
+        f"{ref['wall_s']:.2f} s, waiting for batches "
+        f"{ref['data_wait_s']:.2f} s")
+    out = {k: summary[k] for k in METRICS}
+    out.update(timings=timings, n_words=reloaded.n_words,
+               native_batches=native[0])
+    return out
+
+
+def trace_busy_share(trace_json: Path) -> float:
+    """CUDA kernel time over the span from the first kernel's start to the
+    last one's end, in a torch.profiler Chrome trace."""
+    events = json.loads(trace_json.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    span = (max(e["ts"] + e["dur"] for e in kernels)
+            - min(e["ts"] for e in kernels))
+    return sum(e["dur"] for e in kernels) / span
+
+
+def phase_store_train(card, work: Path, train, profiling=False):
+    log(f"phase 9c: GAN trainer main on the store, --preset fast, batch "
+        f"{STORE_BATCH}, one epoch, full width (no --synthetic)")
+    trace_dir = work / "gan_store_trace"
+    args = train_cli.build_parser().parse_args([
+        "--train_data_path", str(work / "beat" / "test"), "--batch_size",
+        str(STORE_BATCH), "--total_epoch", "1", "--preset", "fast",
+        "--device", DEVICE, "--save_every", "1000", "--model_save_path",
+        str(work / "gan_store"),
+        *(["--profile_dir", str(trace_dir)] if profiling else [])])
+    reset_counts()
+    dataset_mod.native_batches = dataset_mod.exact_batches = 0
+    torch.cuda.reset_peak_memory_stats()
+    gen, disc, summary = train_cli.main(args)
+    steps = (STORE_CLIPS * WINDOWS_PER_CLIP) // STORE_BATCH
+    assert_no_launches("9c")
+    bad = [k for k, v in summary["metrics"].items() if not np.isfinite(v)]
+    if bad or (gen.step, disc.step) != (steps, steps):
+        raise SystemExit(f"9c: steps {gen.step}, {disc.step} (want {steps}),"
+                         f" non-finite losses {bad}")
+    if (dataset_mod.native_batches, dataset_mod.exact_batches) != (steps, 0):
+        raise SystemExit("9c: not every batch came through the native "
+                         "gather")
+    n_words = gen.module.text_encoder.embedding.num_embeddings
+    del gen, disc
+    shutil.rmtree(work / "gan_store")
+    res = trainer_numbers(summary["step_ms"], STORE_BATCH,
+                          torch.cuda.max_memory_allocated(), summary["wall_s"])
+    res.update(losses=summary["metrics"], n_words=n_words)
+    busy = ""
+    if profiling:
+        res["busy_share"] = trace_busy_share(trace_dir / "trace.json")
+        busy = (f", device busy share {res['busy_share']:.3f} over the "
+                "traced steps 4-8 (torch.profiler, prefetcher running)")
+    log(f"  [{card}] store, bf16 g_first, {n_words} words: "
+        f"{res['ms_per_step']:.2f} ms per step (CUDA events, steps "
+        f"3-{steps}; all: {', '.join(f'{v:.2f}' for v in res['step_ms'])})"
+        f", {res['samples_per_s']:.1f} samples/s, peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB allocated, wall "
+        f"{res['wall_s']:.1f} s{busy}; last losses " + ", ".join(
+            f"{k} {v:.5f}" for k, v in res["losses"].items())
+        + f"; {steps} batches through the native gather; attention, mel "
+        "and SE-stage launches 0")
+    ref = train["fast"]
+    log(f"  [{card}] phase 6b (synthetic, same flags): "
+        f"{ref['ms_per_step']:.2f} ms per step, "
+        f"{ref['samples_per_s']:.1f} samples/s, wall {ref['wall_s']:.1f} s")
+    return res
+
+
+def phase_store_aux(card, work: Path):
+    small = work / "small" / "test"
+    big = GestureStore(work / "beat" / "test_cache")
+    n_small = SMALL_CLIPS * WINDOWS_PER_CLIP
+    with GestureStoreWriter(str(small) + "_cache") as w:
+        for i in range(n_small):
+            w.append(big[i])
+    big.close()
+    log(f"phase 9d: FGD trainer (2 epochs) and the K-fold trainer "
+        f"(--max_folds 1, one epoch) on the first {n_small} windows of the "
+        f"store as train, val and test, batch {STORE_BATCH}")
+    args = aux_cli.build_parser().parse_args([
+        "--model", "fgd", "--train_data_path", str(small), "--batch_size",
+        str(STORE_BATCH), "--total_epoch", "2", "--device", DEVICE,
+        "--save_every", "1000", "--model_save_path", str(work / "aux_store")])
+    reset_counts()
+    state, summary = aux_cli.main(args)
+    assert_no_launches("9d fgd")
+    fgd_loss = summary["metrics"]["loss"]
+    if state.step != 2 or not np.isfinite(fgd_loss):
+        raise SystemExit(f"9d fgd: step {state.step}, loss {fgd_loss}")
+    args = kfold_cli.build_parser().parse_args([
+        "--train_data_path", str(small), "--val_data_path", str(small),
+        "--test_data_path", str(small), "--batch_size", str(STORE_BATCH),
+        "--total_epoch", "1", "--max_folds", "1", "--device", DEVICE,
+        "--model_save_path", str(work / "kfold_store")])
+    reset_counts()
+    step, seen = classifier.train_step, []
+
+    def spy(*a, **k):  # the losses of the K-fold loop's steps
+        state, metrics = step(*a, **k)
+        seen.append(metrics["loss"])
+        return state, metrics
+
+    classifier.train_step = spy
+    try:
+        results = kfold_cli.main(args)
+    finally:
+        classifier.train_step = step
+    assert_no_launches("9d K-fold")
+    # fold 1's train split of the train and val stores together
+    want = (2 * n_small - (2 * n_small + 9) // 10) // STORE_BATCH
+    losses = [float(m) for m in seen]
+    r = results[0] if results else None
+    if r is None or r["state"].step != want or len(losses) != want or \
+            not np.all(np.isfinite(losses)) or not np.isfinite(r["test_acc"]):
+        raise SystemExit(f"9d K-fold: results {results}, losses {losses} "
+                         f"(want {want} steps)")
+    shutil.rmtree(work / "kfold_store")
+    log(f"  [{card}] fgd: 2 steps, loss {fgd_loss:.5f}, step ms "
+        f"{', '.join(f'{v:.2f}' for v in summary['step_ms'])}; K-fold "
+        f"fp32: {want} steps, losses {', '.join(f'{v:.5f}' for v in losses)}"
+        f", test "
+        f"accuracy {r['test_acc']:.2f}%, step ms "
+        f"{', '.join(f'{v:.2f}' for v in r['step_ms'])}; attention, mel and "
+        "SE-stage launches 0")
+    return {"fgd_loss": fgd_loss, "kfold_loss": losses[-1],
+            "kfold_steps": want, "kfold_test_acc": r["test_acc"]}
+
+
+def phase_store(card, work: Path, counts, synthetic_eval, train,
+                profiling=False):
+    return {"preprocess": phase_preprocess(card, work, counts),
+            "eval": phase_store_eval(card, work, counts, synthetic_eval),
+            "train": phase_store_train(card, work, train, profiling),
+            "aux": phase_store_aux(card, work)}
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
@@ -1550,6 +1876,8 @@ def main(argv) -> int:
         train = phase_train(card, work, args.profile)
         aux = phase_aux(card, work)
         kfold = phase_kfold(card, work, args.profile)
+        store = phase_store(card, work, counts, evals["fast"], train,
+                            args.profile)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -1557,7 +1885,7 @@ def main(argv) -> int:
             raise SystemExit(f"{e['name']}: not launched on the main path")
 
     detail = {"card": card, "serving": serving, "eval": evals,
-              "train": train, "aux": aux, "classifier": kfold,
+              "train": train, "aux": aux, "classifier": kfold, "store": store,
               "se_stage": se_detail, "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     keys = ("ms_per_step", "samples_per_s", "peak_bytes", "wall_s")
@@ -1566,7 +1894,11 @@ def main(argv) -> int:
     trainers.update({f"classifier_{v['compute_dtype']}": v
                      for k, v in kfold.items() if k in KFOLD_PRESETS})
     log(json.dumps({"serving": serving, "trainers": {
-        k: {m: v[m] for m in keys} for k, v in trainers.items()}}))
+        k: {m: v[m] for m in keys} for k, v in trainers.items()},
+        "store": {"preprocess_wall_s": store["preprocess"]["wall_s"],
+                  "eval_wall_s": store["eval"]["timings"]["wall_s"],
+                  "eval_data_wait_s": store["eval"]["timings"]["data_wait_s"],
+                  "gan_ms_per_step": store["train"]["ms_per_step"]}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,16 @@ compatible with the reference's test_emotion_gesture_diversity_iterative.py:
 345-377.
 
     python -m emotiongestures_torch.cli.test_emotion_gesture_diversity_iterative \
+        --test_data_path data/beat/test --test_batch_size 1024 --preset fast
+    python -m emotiongestures_torch.cli.test_emotion_gesture_diversity_iterative \
         --synthetic 2048 --test_batch_size 1024 --preset fast
+
+The test set is the GestureStore at `<test_data_path>_cache` (made by
+data.preprocessing.DataPreprocessor or data.synthetic.materialize_store),
+read in order through the C++ batch gather; the vocabulary is built from
+its words and cached at `vocab_all.pkl` beside `test_data_path`, in the
+pickle both packages read. --synthetic N evaluates on the synthetic set
+instead.
 
 Per batch, `eval_batch` runs on the card: a CVAE prior sample, the
 generator, the skeleton classifier's logits of the generated poses, the FGD
@@ -23,11 +32,11 @@ stripped) or the checkpoint directories of the port's trainers (the newest
 `checkpoint_iteration<N>.pt`; for the generator, `<path>` or
 `<path>/generator`, so --checkpoints_folder_path may name the GAN trainer's
 --model_save_path); without one, a net keeps its seeded random weights. Not
-ported yet, and refused with an error: the BEAT/TED data stack (run with
---synthetic N), the JAX package's orbax checkpoint directories, and more
-than one card (--num_devices, --model_parallel). Run from the command line
-with --precision float32 on the card, the CLI turns TF32 off for its process;
-`main()` called from other code leaves that switch to its caller.
+ported yet, and refused with an error: the JAX package's orbax checkpoint
+directories, and more than one card (--num_devices, --model_parallel). Run
+from the command line with --precision float32 on the card, the CLI turns
+TF32 off for its process; `main()` called from other code leaves that
+switch to its caller.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import argparse
 import contextlib
 import itertools
 import logging
+import os
 import pprint
 import sys
 import time
@@ -45,8 +55,10 @@ import torch
 
 from ..core import precision as prec
 from ..core.device import fp32_exact_on_cuda, resolve_device
+from ..data.dataset import SpeechMotionDataset
 from ..data.pipeline import Prefetcher, place_batches
 from ..data.synthetic import SyntheticGestureDataset
+from ..data.vocab import build_vocab
 from ..eval.beat import BeatAligner
 from ..eval.fgd import diversity_score, frechet_from_features
 from ..eval.metrics import compute_acc, l2_distance_pose
@@ -111,8 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default="./data/beat_trainable_dataset/test/")
     # framework extras
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="evaluate on N synthetic samples (the only "
-                             "data source of the port so far)")
+                        help="evaluate on N synthetic samples instead "
+                             "of --test_data_path's store")
     parser.add_argument("--class_overlap", type=float, default=0.0,
                         help="synthetic-set class overlap: blends each "
                              "sample's postural class signature toward the "
@@ -397,19 +409,30 @@ def main(args=None, noise=None):
         raise NotImplementedError(
             "the PyTorch port evaluates on one card: --num_devices > 1 and "
             "--model_parallel > 1 are not ported yet")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the BEAT/TED LMDB data stack is not ported to the PyTorch port "
-            "yet; run with --synthetic N")
     set_logger(args.log_save_path,
                "test_emotion_gesture_diversity_iterative.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else device)
     logging.info(pprint.pformat(vars(args)))
 
-    test_dataset = SyntheticGestureDataset(
-        n_samples=args.synthetic, seed=args.seed,
-        class_overlap=args.class_overlap)
+    if args.synthetic:
+        test_dataset = SyntheticGestureDataset(
+            n_samples=args.synthetic, seed=args.seed,
+            class_overlap=args.class_overlap)
+        n_words = N_WORDS_SYNTHETIC
+    else:
+        test_dataset = SpeechMotionDataset(
+            args.test_data_path, n_poses=args.n_poses,
+            subdivision_stride=args.subdivision_stride,
+            pose_resampling_fps=args.motion_resampling_framerate,
+            remove_word_timing=(args.input_context == "text"))
+        lang_model = build_vocab(
+            "words", [test_dataset.store],
+            os.path.join(os.path.dirname(args.test_data_path.rstrip("/")),
+                         "vocab_all.pkl"),
+            args.wordembed_path, args.wordembed_dim)
+        test_dataset.set_lang_model(lang_model)
+        n_words = lang_model.n_words
     if len(test_dataset) < args.test_batch_size:
         raise SystemExit(
             f"test set smaller than --test_batch_size={args.test_batch_size}")
@@ -420,7 +443,7 @@ def main(args=None, noise=None):
         eval_fields = ("audio",) + eval_fields
     batches = test_dataset.batches(args.test_batch_size, shuffle=False,
                                    fields=eval_fields)
-    return test_model(args, batches, N_WORDS_SYNTHETIC, noise=noise)
+    return test_model(args, batches, n_words, noise=noise)
 
 
 def cli() -> None:

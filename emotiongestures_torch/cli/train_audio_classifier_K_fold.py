@@ -3,8 +3,15 @@ emotiongestures_tpu/cli/train_audio_classifier_K_fold.py), flag-compatible
 with the reference's train_audio_classifier_K_fold.py:309-331.
 
     python -m emotiongestures_torch.cli.train_audio_classifier_K_fold \
+        --train_data_path data/beat/train --val_data_path data/beat/val \
+        --test_data_path data/beat/test --batch_size 128 --total_epoch 2 \
+        --max_folds 1 [--preset fast]
+    python -m emotiongestures_torch.cli.train_audio_classifier_K_fold \
         --synthetic 512 --batch_size 128 --total_epoch 2 --max_folds 1 \
         [--preset fast]
+
+The folds split the train and val stores together (each a GestureStore at
+`<path>_cache`); the test store is the held-out set.
 
 Extra flags, as in the JAX CLI: --synthetic N (the deterministic synthetic
 set), --class_overlap, --max_folds / --eval_every to bound a run, --resume
@@ -16,10 +23,10 @@ confusion matrix is drawn to confusion_fold<k>.png when matplotlib is
 installed; without it a warning is logged and training is unaffected.
 
 Runs on the card unless --device cpu. Not ported yet, and refused with an
-error naming the ROADMAP.md item: real data without --synthetic (queue 1,
-item 4) and more than one card (--num_devices > 1, item 6). Run from the
-command line in fp32 on the card, the trainer turns TF32 off for its
-process; `main()` called from other code leaves that switch to its caller.
+error naming the ROADMAP.md item: more than one card (--num_devices > 1,
+queue 1, item 6). Run from the command line in fp32 on the card, the
+trainer turns TF32 off for its process; `main()` called from other code
+leaves that switch to its caller.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from pathlib import Path
 import torch
 
 from ..core.device import fp32_exact_on_cuda, resolve_device
+from ..data.dataset import SpeechMotionDataset
 from ..data.synthetic import SyntheticGestureDataset
 from ..train import classifier
 from ..utils.checkpoint import (GracefulShutdown, load_checkpoint,
@@ -70,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default="./data/BEAT_Emotion/test/")
     # extras
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="use N synthetic samples (the only data source "
-                             "of the port so far)")
+                        help="use N synthetic samples instead of the "
+                             "train, val and test stores")
     parser.add_argument("--class_overlap", type=float, default=0.0,
                         help="synthetic-set class-overlap knob "
                              "(data/synthetic.py)")
@@ -98,11 +106,26 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+class _ConcatDataset:
+    """The train and val stores as one indexable set (the K-fold split
+    runs over both)."""
+
+    def __init__(self, datasets):
+        self.datasets = datasets
+        self._lens = [len(d) for d in datasets]
+
+    def __len__(self):
+        return sum(self._lens)
+
+    def __getitem__(self, idx):
+        for d, n in zip(self.datasets, self._lens):
+            if idx < n:
+                return d[idx]
+            idx -= n
+        raise IndexError
+
+
 def _refuse_unported(args) -> None:
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the BEAT_Emotion data stack is not ported to the PyTorch port "
-            "yet (ROADMAP.md queue 1, item 4); run with --synthetic N")
     if args.num_devices > 1:
         raise NotImplementedError(
             "the PyTorch port trains on one card: --num_devices > 1 is not "
@@ -123,11 +146,24 @@ def main(args=None):
                  if device.type == "cuda" else device)
     logging.info(pprint.pformat(vars(args)))
 
-    full = SyntheticGestureDataset(n_samples=args.synthetic, seed=args.seed,
-                                   class_overlap=args.class_overlap)
-    test = SyntheticGestureDataset(
-        n_samples=max(args.batch_size, args.synthetic // 4),
-        seed=args.seed + 1, class_overlap=args.class_overlap)
+    if args.synthetic:
+        full = SyntheticGestureDataset(n_samples=args.synthetic,
+                                       seed=args.seed,
+                                       class_overlap=args.class_overlap)
+        test = SyntheticGestureDataset(
+            n_samples=max(args.batch_size, args.synthetic // 4),
+            seed=args.seed + 1, class_overlap=args.class_overlap)
+    else:
+        def store(path):
+            return SpeechMotionDataset(
+                path, n_poses=args.n_poses,
+                subdivision_stride=args.subdivision_stride,
+                pose_resampling_fps=args.motion_resampling_framerate,
+                remove_word_timing=(args.input_context == "text"))
+
+        full = _ConcatDataset([store(args.train_data_path),
+                               store(args.val_data_path)])
+        test = store(args.test_data_path)
     save_dir = Path(args.model_save_path)
     progress_path = save_dir / "kfold_progress.json"
 

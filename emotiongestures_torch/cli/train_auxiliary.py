@@ -10,12 +10,17 @@ emotiongestures_tpu/cli/train_auxiliary.py):
                     randomly initialised without one
 
     python -m emotiongestures_torch.cli.train_auxiliary --model fgd \
+        --train_data_path data/beat/train --batch_size 128 --total_epoch 2
+    python -m emotiongestures_torch.cli.train_auxiliary --model fgd \
         --synthetic 512 --batch_size 128 --total_epoch 2
     python -m emotiongestures_torch.cli.train_auxiliary --model cvae \
         --device cpu --synthetic 16 --batch_size 8 --total_epoch 1 \
         --d_model 64 --latent_dim 128 --gen_layers 1
 
-Runs on the card unless --device cpu. Checkpoints go to
+The training set is the GestureStore at `<train_data_path>_cache` (no
+vocabulary: the text grid is zeros and the CVAE's generator has 64 words, as
+in the JAX trainer), or the synthetic set with --synthetic N. Runs on the
+card unless --device cpu. Checkpoints go to
 <model_save_path>/<model>/ every --save_every steps and at the end, where
 the eval CLI's --fgd_checkpoint / --skeleton_checkpoint / --cvae_checkpoint
 read them; --resume continues from the newest. SIGTERM or SIGINT ends the
@@ -28,12 +33,12 @@ with d_inner from --latent_dim and n_position from --n_poses; it keeps the
 JAX defaults: 400 warmup steps, no weight decay and the plateau reseed,
 which drops the plateaued attempt's checkpoint directory.
 
-Not ported yet, and refused with an error naming the ROADMAP.md item: real
-data without --synthetic (queue 1, item 4), more than one card or process
-(--num_devices > 1 and the multi-host flags; item 6), --cvae_version other
-than 3 (item 7). Run from the command line on the card, the trainer turns
-TF32 off for its process (every trainer here is fp32); `main()` called
-from other code leaves that switch to its caller.
+Not ported yet, and refused with an error naming the ROADMAP.md item (queue
+1): more than one card or process (--num_devices > 1 and the multi-host
+flags; item 6), --cvae_version other than 3 (item 7). Run from the command
+line on the card, the trainer turns TF32 off for its process (every
+trainer here is fp32); `main()` called from other code leaves that switch
+to its caller.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import time
 import torch
 
 from ..core.device import fp32_exact_on_cuda, resolve_device
+from ..data.dataset import SpeechMotionDataset
 from ..data.pipeline import Prefetcher, place_batches
 from ..data.synthetic import SyntheticGestureDataset
 from ..models.generator import GestureTransformer
@@ -97,8 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default="./data/beat_trainable_dataset/train/")
     parser.add_argument("--input_context", type=str, default="text")
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="train on N synthetic samples (the only data "
-                             "source of the port so far)")
+                        help="train on N synthetic samples instead of "
+                             "--train_data_path's store")
     parser.add_argument("--class_overlap", type=float, default=0.0,
                         help="synthetic-set class-overlap knob "
                              "(data/synthetic.py)")
@@ -139,10 +145,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the BEAT/TED LMDB data stack is not ported to the PyTorch port "
-            "yet (ROADMAP.md queue 1, item 4); run with --synthetic N")
     if (args.num_devices > 1 or args.coordinator_address is not None
             or args.num_processes is not None
             or args.process_id is not None):
@@ -214,9 +216,15 @@ def main(args=None):
                  if device.type == "cuda" else device)
     logging.info(pprint.pformat(vars(args)))
 
-    dataset = SyntheticGestureDataset(
-        n_samples=args.synthetic, seed=args.seed, n_poses=args.n_poses,
-        pose_dim=args.pose_dim, class_overlap=args.class_overlap)
+    if args.synthetic:
+        dataset = SyntheticGestureDataset(
+            n_samples=args.synthetic, seed=args.seed, n_poses=args.n_poses,
+            pose_dim=args.pose_dim, class_overlap=args.class_overlap)
+    else:
+        dataset = SpeechMotionDataset(
+            args.train_data_path, n_poses=args.n_poses,
+            subdivision_stride=args.subdivision_stride,
+            pose_resampling_fps=args.motion_resampling_framerate)
     state = _make_state(args, args.seed, device)
     plateau = None
     if args.model == "fgd":

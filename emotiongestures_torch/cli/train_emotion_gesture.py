@@ -6,12 +6,19 @@ warm-up, the motion discriminator, the emotion CE head and the InfoNCE
 disentanglement term (train/gan.py).
 
     python -m emotiongestures_torch.cli.train_emotion_gesture \
+        --train_data_path data/beat/train --batch_size 128 --total_epoch 2 \
+        [--preset fast]
+    python -m emotiongestures_torch.cli.train_emotion_gesture \
         --synthetic 512 --batch_size 128 --total_epoch 2 [--preset fast]
     python -m emotiongestures_torch.cli.train_emotion_gesture --device cpu \
         --synthetic 16 --batch_size 8 --total_epoch 1 --d_model 64 \
         --latent_dim 128 --gen_layers 1
 
-Runs on the card unless --device cpu. Checkpoints go to --model_save_path
+The training set is the GestureStore at `<train_data_path>_cache`, read in
+a seeded shuffle through the C++ batch gather (the JAX trainer's order), with
+the vocabulary built from its words (GANConfig.n_words is its size);
+--synthetic N trains on the synthetic set instead. Runs on the card unless
+--device cpu. Checkpoints go to --model_save_path
 (`generator/` and `discriminator/`, every --save_every steps and at the
 end); --resume continues from the newest, and the staged LR and the
 discriminator warm-up follow the global epoch (restored step //
@@ -19,13 +26,12 @@ steps_per_epoch). SIGTERM or SIGINT ends the run at a step boundary with a
 checkpoint. --profile_dir writes a torch.profiler Chrome trace of
 --profile_steps steps from the fourth step of the run on.
 
-Not ported yet, and refused with an error naming the ROADMAP.md item: real
-data without --synthetic (queue 1, item 4), more than one card or process
-(--num_devices, --model_parallel, the multi-host flags; item 6) and the
-generator variants other than `memory` (item 7, refused by
-`train.gan.build_models`). Run from the command line in fp32 on the card,
-the trainer turns TF32 off for its process; `main()` called from other code
-leaves that switch to its caller.
+Not ported yet, and refused with an error naming the ROADMAP.md item (queue
+1): more than one card or process (--num_devices, --model_parallel, the
+multi-host flags; item 6) and the generator variants other than `memory`
+(item 7, refused by `train.gan.build_models`). Run from the command line
+in fp32 on the card, the trainer turns TF32 off for its process; `main()`
+called from other code leaves that switch to its caller.
 """
 from __future__ import annotations
 
@@ -40,8 +46,10 @@ import torch
 
 from ..core.device import fp32_exact_on_cuda, resolve_device
 from ..core.schedules import staged_lr
+from ..data.dataset import SpeechMotionDataset
 from ..data.pipeline import Prefetcher, place_batches
 from ..data.synthetic import SyntheticGestureDataset
+from ..data.vocab import build_vocab
 from ..train import gan
 from ..utils.checkpoint import AsyncSaver, GracefulShutdown, load_checkpoint
 from ..utils.logging import MetricLogger, set_logger
@@ -110,10 +118,6 @@ def build_parser():
 
 
 def _refuse_unported(args) -> None:
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the BEAT/TED LMDB data stack is not ported to the PyTorch port "
-            "yet (ROADMAP.md queue 1, item 4); run with --synthetic N")
     if (args.num_devices > 1 or args.model_parallel > 1
             or args.coordinator_address is not None
             or args.num_processes is not None
@@ -143,15 +147,27 @@ def main(args=None):
                  if device.type == "cuda" else device)
     logging.info(pprint.pformat(vars(args)))
 
-    dataset = SyntheticGestureDataset(
-        n_samples=args.synthetic, seed=args.seed, n_poses=args.n_frames,
-        pose_dim=args.pose_dim, class_overlap=args.class_overlap)
+    if args.synthetic:
+        dataset = SyntheticGestureDataset(
+            n_samples=args.synthetic, seed=args.seed, n_poses=args.n_frames,
+            pose_dim=args.pose_dim, class_overlap=args.class_overlap)
+        n_words = N_WORDS_SYNTHETIC
+    else:
+        dataset = SpeechMotionDataset(
+            args.train_data_path, n_poses=args.n_poses,
+            subdivision_stride=args.subdivision_stride,
+            pose_resampling_fps=args.motion_resampling_framerate,
+            remove_word_timing=(args.input_context == "text"))
+        lang_model = build_vocab("words", [dataset.store], None,
+                                 args.wordembed_path, args.wordembed_dim)
+        dataset.set_lang_model(lang_model)
+        n_words = lang_model.n_words
     # one epoch is one pass over the data; echo steps count toward it, so
     # the staged ladder still advances per data epoch
     steps_per_epoch = max(len(dataset) // args.batch_size, 1) * \
         args.data_echo
     cfg = gan.GANConfig(
-        n_words=N_WORDS_SYNTHETIC, frames=args.n_frames,
+        n_words=n_words, frames=args.n_frames,
         pose_dim=args.pose_dim, prior_frames=args.n_pre_poses,
         d_model=args.d_model, d_inner=args.latent_dim,
         n_layers=args.gen_layers, steps_per_epoch=steps_per_epoch,

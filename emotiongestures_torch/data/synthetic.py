@@ -155,6 +155,48 @@ class SyntheticGestureDataset:
             yield make_batch([self[j] for j in window], fields)
 
 
+def materialize_store(out_dir, n_samples: int, seed: int = 0,
+                      n_words: int = 64, log_every: int = 0,
+                      class_overlap: float = 0.0):
+    """Materialise the synthetic set into a GestureStore laid out exactly
+    like a migrated BEAT cache (lmdb_loader_BEAT_full.py:171-253 record
+    semantics): timed `word_seq` entries whose start times land each
+    token on its frame under `extend_word_seq`'s floor-grid, float16
+    spectrogram (the reference caches store float16,
+    utils/train_utils_BEAT.py:189), raw audio, poses, eid aux. Training
+    from the store exercises the real host input path (mmap decode,
+    `__getitem__` fixups, text-grid assembly, collate) instead of
+    regenerating a host mel per sample every epoch. Vocabulary: token t
+    becomes the word "w{t}", recovered by the standard `build_vocab` store
+    scan. The JAX package's materialize_store writes the same bytes."""
+    from .store import GestureStoreWriter
+
+    ds = SyntheticGestureDataset(n_samples=n_samples, seed=seed,
+                                 n_words=n_words, cache_size=0,
+                                 class_overlap=class_overlap)
+    frame_duration = 4.0 / ds.n_poses  # end_time 4.0, start_time 0.0
+    with GestureStoreWriter(out_dir) as writer:
+        for i in range(n_samples):
+            s = ds[i]
+            # word start at mid-frame: floor((p+0.25)*fd / fd) == p is
+            # robust to float division, while p*fd/fd can floor to p-1
+            word_seq = [
+                [f"w{int(tok)}", float((p + 0.25) * frame_duration),
+                 float((p + 0.75) * frame_duration)]
+                for p, tok in enumerate(s["text"]) if tok
+            ]
+            writer.append({
+                "word_seq": word_seq,
+                "pose_seq": s["pose_seq"],
+                "audio": s["audio"],
+                "spectrogram": s["spectrogram"].astype(np.float16),
+                "aux_info": s["aux_info"],
+            })
+            if log_every and (i + 1) % log_every == 0:
+                print(f"# materialized {i + 1}/{n_samples}", flush=True)
+    return n_samples
+
+
 BATCH_FIELDS = ("audio", "spectrogram", "pose_seq", "eid_label", "text")
 
 

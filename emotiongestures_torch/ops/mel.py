@@ -198,3 +198,14 @@ def calc_spectrogram_length_from_motion_length(n_frames: int, fps: int) -> int:
     """(n / fps * 16000 - 1024) / 512 + 1: 60 frames at 15 fps -> 124."""
     return int(round((n_frames / fps * SR - N_FFT) / HOP + 1))
 
+
+def make_audio_fixed_length(audio: np.ndarray,
+                            expected_len: int) -> np.ndarray:
+    """Pad (symmetric) or trim a wave to `expected_len` samples
+    (utils/train_utils_BEAT.py:193-226)."""
+    n_padding = expected_len - len(audio)
+    if n_padding > 0:
+        audio = np.pad(audio, (0, n_padding), mode="symmetric")
+    else:
+        audio = audio[:expected_len]
+    return audio

@@ -106,7 +106,8 @@ def test_cvae_features_from_a_generator_checkpoint(run_dir):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--model", "fgd", "--synthetic", "0"], NotImplementedError, "item 4"),
+    (["--model", "fgd", "--synthetic", "0", "--train_data_path",
+      "missing/train"], FileNotFoundError, "no GestureStore"),
     (["--model", "fgd", "--num_devices", "2"], NotImplementedError,
      "item 6"),
     (["--model", "fgd", "--coordinator_address", "localhost:1234"],

@@ -84,6 +84,7 @@ def test_entry_points_default_to_cuda():
     )
     from emotiongestures_torch.models.emotion_net import DisNet, EmotionNet
     from emotiongestures_torch.train import classifier, cvae, fgd, skeleton
+    from emotiongestures_torch.data.preprocessing import DataPreprocessor
 
     calls = [
         lambda: GestureTransformer(n_words=8),
@@ -113,10 +114,34 @@ def test_entry_points_default_to_cuda():
             ["--model", "fgd", "--synthetic", "8", "--batch_size", "8"])),
         lambda: kfold_cli.main(kfold_cli.build_parser().parse_args(
             ["--synthetic", "8", "--batch_size", "8"])),
+        # the real-data stack: the device frontends of the preprocessor,
+        # and the four CLIs reading their stores (no --synthetic)
+        lambda: DataPreprocessor("clips", "out", 60, 30, 15,
+                                 spectrogram_frontend="pallas"),
+        lambda: DataPreprocessor("clips", "out", 60, 30, 15,
+                                 spectrogram_frontend="xla"),
+        lambda: eval_cli.main(eval_cli.build_parser().parse_args([])),
+        lambda: train_cli.main(train_cli.build_parser().parse_args([])),
+        lambda: aux_cli.main(aux_cli.build_parser().parse_args(
+            ["--model", "fgd"])),
+        lambda: kfold_cli.main(kfold_cli.build_parser().parse_args([])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_codec_is_built_from_the_ports_own_source():
+    """The batch gather the port loads is its own build of
+    emotiongestures_torch/csrc/codec.cpp, never the JAX package's
+    native/libegtp_codec.so."""
+    from emotiongestures_torch.data import store
+
+    assert store.CODEC_SRC == PORT / "csrc" / "codec.cpp"
+    loaded = Path(store.native_codec()._name).resolve()
+    assert loaded == store.codec_target().resolve()
+    assert loaded.is_relative_to(PORT / "_build")
+    assert store.codec_target().name.startswith("libegtp_codec-")
 
 
 def test_cpu_tensors_take_plain_versions():

@@ -84,10 +84,11 @@ def test_resume_continues_the_fold(run_dir):
     assert "resuming fold 1 from iter 4" in log
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--synthetic", "0"], "item 4"),
-    (["--num_devices", "2"], "item 6"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--synthetic", "0", "--train_data_path", "missing/train"],
+     FileNotFoundError, "no GestureStore"),
+    (["--num_devices", "2"], NotImplementedError, "item 6"),
 ], ids=["real-data", "devices"])
-def test_refusals(run_dir, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_refusals(run_dir, flags, error, match):
+    with pytest.raises(error, match=match):
         _main(run_dir, *flags)

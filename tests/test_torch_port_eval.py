@@ -203,15 +203,20 @@ def test_parser_flag_surface_matches_jax():
     assert kept.precision == "float32" and kept.fused_attention
 
 
-@pytest.mark.parametrize("flags,match", [
-    ([], "BEAT/TED"),
-    (["--synthetic", "8", "--num_devices", "2"], "one card"),
-    (["--synthetic", "8", "--model_parallel", "2"], "one card"),
-])
-def test_cli_refuses_what_is_not_ported(flags, match, tmp_path):
+@pytest.mark.parametrize("flags,error,match", [
+    ([], FileNotFoundError, "no GestureStore"),
+    (["--synthetic", "8", "--num_devices", "2"], NotImplementedError,
+     "one card"),
+    (["--synthetic", "8", "--model_parallel", "2"], NotImplementedError,
+     "one card"),
+], ids=["missing-store", "devices", "model-parallel"])
+def test_cli_refuses_what_is_not_ported(flags, error, match, tmp_path):
+    """Without --synthetic the CLI reads the store at --test_data_path and
+    names it when it is missing; more than one card is not ported."""
     args = port_cli.build_parser().parse_args(
-        ["--device", "cpu", "--log_save_path", str(tmp_path)] + flags)
-    with pytest.raises(NotImplementedError, match=match):
+        ["--device", "cpu", "--log_save_path", str(tmp_path),
+         "--test_data_path", str(tmp_path / "test")] + flags)
+    with pytest.raises(error, match=match):
         port_cli.main(args)
 
 

@@ -95,15 +95,17 @@ def test_profile_dir_writes_a_trace(run_dir, tmp_path):
     assert any("conv" in str(n) for n in names)
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--synthetic", "0"], "item 4"),
-    (["--num_devices", "2"], "item 6"),
-    (["--model_parallel", "2"], "item 6"),
-    (["--coordinator_address", "localhost:1234"], "item 6"),
-    (["--variant", "base"], "item 7"),
+@pytest.mark.parametrize("extra,error,match", [
+    (["--synthetic", "0", "--train_data_path", "missing/train"],
+     FileNotFoundError, "no GestureStore"),
+    (["--num_devices", "2"], NotImplementedError, "item 6"),
+    (["--model_parallel", "2"], NotImplementedError, "item 6"),
+    (["--coordinator_address", "localhost:1234"], NotImplementedError,
+     "item 6"),
+    (["--variant", "base"], NotImplementedError, "item 7"),
 ], ids=["real-data", "devices", "model-parallel", "multi-host", "variant"])
-def test_unported_paths_are_refused(run_dir, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_paths_are_refused(run_dir, extra, error, match):
+    with pytest.raises(error, match=match):
         _main(run_dir, *extra)
 
 
