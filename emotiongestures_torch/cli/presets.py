@@ -8,7 +8,7 @@ the eval CLI, to --compute_dtype bfloat16 --update_order g_first in the GAN
 trainer, and to --compute_dtype bfloat16 in the classifier trainer.
 Expansion only touches flags the user left at their parser default, so an
 explicit flag always wins over the preset (e.g. `--preset fast --precision
-float32` keeps fp32).
+float32` keeps fp32), and happens once per namespace.
 """
 from __future__ import annotations
 
@@ -53,8 +53,12 @@ def apply_preset(args: argparse.Namespace,
                  table: dict, argv=None) -> argparse.Namespace:
     """Expand `--preset fast` into `table`'s flag values, skipping any flag
     the user set explicitly."""
-    if getattr(args, "preset", "parity") != "fast":
+    if getattr(args, "preset", "parity") != "fast" or \
+            getattr(args, "preset_expanded", False):
         return args
+    # once: a second call (main() after cli(), or a data-parallel rank)
+    # has no argv and would take an explicit flag at its default for unset
+    args.preset_expanded = True
     for name, value in table.items():
         if _explicitly_set(name, args, parser, argv):
             logging.info("--preset fast: keeping explicit --%s %r", name,

@@ -31,12 +31,25 @@ reference-layout .pth files (a `module.` prefix and a `gen_dict` wrapper are
 stripped) or the checkpoint directories of the port's trainers (the newest
 `checkpoint_iteration<N>.pt`; for the generator, `<path>` or
 `<path>/generator`, so --checkpoints_folder_path may name the GAN trainer's
---model_save_path); without one, a net keeps its seeded random weights. Not
-ported yet, and refused with an error: the JAX package's orbax checkpoint
-directories, and more than one card (--num_devices, --model_parallel). Run
-from the command line with --precision float32 on the card, the CLI turns
-TF32 off for its process; `main()` called from other code leaves that
-switch to its caller.
+--model_save_path); without one, a net keeps its seeded random weights.
+
+--num_devices N evaluates data-parallel over N processes on this host, one
+per card (0, the default, is every visible card, degraded to the largest
+count that divides --test_batch_size); under torchrun, or in a process
+whose caller has initialised the group, `main` joins that group. Each rank
+runs `eval_batch` on its rows of every batch (the CVAE noise is its rows of
+the global draw, TMMemory couples the global batch), scores beat alignment,
+accuracy and L2 on its rows, and the FGD features are gathered, so the
+Fréchet distance and the diversity score are computed once on rank 0 from
+the global batch. Rank 0 returns the summary of a one-process run; the
+other ranks return only their `timings`. Under the launcher `main` returns
+rank 0's summary.
+
+Not ported yet, and refused with an error: the JAX package's orbax
+checkpoint directories, and --model_parallel > 1 (tensor parallelism,
+ROADMAP.md queue 1, item 6b). Run from the command line with --precision
+float32 on the card, the CLI turns TF32 off for its process; `main()`
+called from other code leaves that switch to its caller.
 """
 from __future__ import annotations
 
@@ -56,7 +69,7 @@ import torch
 from ..core import precision as prec
 from ..core.device import fp32_exact_on_cuda, resolve_device
 from ..data.dataset import SpeechMotionDataset
-from ..data.pipeline import Prefetcher, place_batches
+from ..data.pipeline import Prefetcher, batch_rows, place_batches
 from ..data.synthetic import SyntheticGestureDataset
 from ..data.vocab import build_vocab
 from ..eval.beat import BeatAligner
@@ -66,6 +79,7 @@ from ..models.cvae import EmotionCVAEv3
 from ..models.fgd_ae import FGDAutoEncoder
 from ..models.generator import GestureTransformer
 from ..models.skeleton_classifier import SkeletonTransformer
+from ..parallel import distributed, mesh
 from ..utils.logging import set_logger
 from ..utils.weights import load_reference_checkpoint
 from .presets import EVAL_FAST, add_preset_flag, apply_preset
@@ -161,7 +175,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="CVAE-noise passes pooled into the diversity "
                              "estimate (the reference's 'iterative' re-runs)")
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="0 or 1: the port evaluates on one card")
+                        help="data-parallel processes on this host, one "
+                             "per card: 0 = every visible card (the largest "
+                             "count that divides --test_batch_size)")
     parser.add_argument("--prefetch", type=int, default=2,
                         help="host->device prefetch depth (pinned memory, "
                              "a side CUDA stream); 0 = synchronous")
@@ -222,6 +238,8 @@ def build_models(args, n_words: int, device) -> EvalNets:
         "cvae": _load(vae, args.cvae_checkpoint, "emotion CVAE",
                       args.allow_pickle),
     }
+    for net in (gen, fgd, skeleton, vae):
+        distributed.broadcast_module(net)
     dtype = torch.float32
     if args.precision == "bfloat16":
         dtype = torch.bfloat16
@@ -291,8 +309,9 @@ def test_model(args, batches, n_words: int, noise=None):
     def z_of(i, k):
         if noise is None:
             return None
-        return torch.as_tensor(np.asarray(noise(i, k)), dtype=torch.float32,
-                               device=device)
+        z = torch.as_tensor(np.asarray(noise(i, k)), dtype=torch.float32,
+                            device=device)
+        return mesh.rank_rows(z, z.shape[0] // mesh.world())
 
     if args.prefetch > 0:
         stream = Prefetcher(batches, device, buffer_size=args.prefetch,
@@ -307,7 +326,7 @@ def test_model(args, batches, n_words: int, noise=None):
     timer = _DeviceTimer(device)
     pred_feats, target_feats, extra_feats = [], [], []
     total_error_pose = 0.0
-    total_rot = []
+    total_rot = 0.0
     all_acc = 0.0
     bl_score = 0.0
     total_steps = 0
@@ -333,14 +352,16 @@ def test_model(args, batches, n_words: int, noise=None):
             for extra in range(max(args.num_diversity_passes, 1) - 1):
                 pf2 = timer(eval_batch, nets, *inputs, noise=z_of(i, extra + 1),
                             generator=rng)[2]
-                extra_feats.append(pf2.cpu().numpy())
+                extra_feats.append(mesh.all_gather(pf2).cpu().numpy())
             pred_np = pred.cpu().numpy()
             target_np = batch["pose_seq"].cpu().numpy()
             labels = np.argmax(batch["eid_label"].cpu().numpy(), axis=1)
+            # this rank's rows; the scalars are summed over the ranks at the
+            # end, the features gathered in the global batch's row order
             all_acc += compute_acc(labels, logits.cpu().numpy())
-            total_rot.append(float(rot_err))
-            pred_feats.append(pf.cpu().numpy())
-            target_feats.append(tf.cpu().numpy())
+            total_rot += float(rot_err)
+            pred_feats.append(mesh.all_gather(pf).cpu().numpy())
+            target_feats.append(mesh.all_gather(tf).cpu().numpy())
             total_error_pose += l2_distance_pose(pred_np, target_np)
             if not args.skip_beat:
                 t0 = time.perf_counter()
@@ -353,6 +374,22 @@ def test_model(args, batches, n_words: int, noise=None):
                 n_beat_samples += len(pred_np)
     if total_steps == 0:
         raise ValueError("test_model: no batches")
+    if mesh.active():
+        # the per-rank means of equal row counts average to the global
+        # batch's; beat scores and counts add
+        sums = distributed.host_sum(torch.tensor(
+            [all_acc, total_error_pose, total_rot, bl_score,
+             n_beat_samples], dtype=torch.float64)).tolist()
+        r = mesh.world()
+        all_acc, total_error_pose, total_rot = (v / r for v in sums[:3])
+        bl_score, n_beat_samples = sums[3], int(sums[4])
+    wall_s = time.time() - start
+    if not distributed.is_primary():
+        batch_ms = timer.ms()
+        return {"timings": {"device": str(device),
+                            "eval_batch_calls": len(batch_ms),
+                            "eval_batch_ms": batch_ms, "wall_s": wall_s,
+                            "data_wait_s": data_s, "beat_s": beat_s}}
 
     t0 = time.perf_counter()
     pred_arr = np.concatenate(pred_feats)
@@ -364,7 +401,7 @@ def test_model(args, batches, n_words: int, noise=None):
     frechet_s = time.perf_counter() - t0
     avg_bl = bl_score / n_beat_samples if n_beat_samples else 0.0
     total_error_pose /= total_steps
-    total_rotation_error = float(np.mean(total_rot))
+    total_rotation_error = total_rot / total_steps
     avg_acc = all_acc / total_steps
     wall_s = time.time() - start
     batch_ms = timer.ms()
@@ -398,6 +435,13 @@ def test_model(args, batches, n_words: int, noise=None):
     }
 
 
+def _rank_main(args, noise, exact_fp32):
+    """One rank of a --num_devices run, with its launcher's TF32 setting."""
+    if exact_fp32:
+        fp32_exact_on_cuda()
+    return main(args, noise)
+
+
 def main(args=None, noise=None):
     """Run the eval. `noise` is test_model's test-only z hook."""
     argv = sys.argv[1:] if args is None else None
@@ -405,10 +449,13 @@ def main(args=None, noise=None):
         args = build_parser().parse_args()
     args = apply_preset(args, build_parser(), EVAL_FAST, argv=argv)
     device = resolve_device(args.device)
-    if args.num_devices > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "the PyTorch port evaluates on one card: --num_devices > 1 and "
-            "--model_parallel > 1 are not ported yet")
+    ranks = mesh.plan(args, args.test_batch_size, device)
+    if ranks > 1 and not distributed.is_initialized():
+        return mesh.launch(_rank_main, ranks, args, noise,
+                           not torch.backends.cudnn.allow_tf32,
+                           device=device.type)[0]
+    device = mesh.rank_device(device)
+    args.device = str(device)
     set_logger(args.log_save_path,
                "test_emotion_gesture_diversity_iterative.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
@@ -442,7 +489,8 @@ def main(args=None, noise=None):
     if not args.skip_beat:
         eval_fields = ("audio",) + eval_fields
     batches = test_dataset.batches(args.test_batch_size, shuffle=False,
-                                   fields=eval_fields)
+                                   fields=eval_fields,
+                                   rows=batch_rows(args.test_batch_size))
     return test_model(args, batches, n_words, noise=noise)
 
 

@@ -22,9 +22,16 @@ replayed permutation), --seed, --compute_dtype, --prefetch, --preset
 confusion matrix is drawn to confusion_fold<k>.png when matplotlib is
 installed; without it a warning is logged and training is unaffected.
 
-Runs on the card unless --device cpu. Not ported yet, and refused with an
-error naming the ROADMAP.md item: more than one card (--num_devices > 1,
-queue 1, item 6). Run from the command line in fp32 on the card, the
+Runs on the card unless --device cpu. --num_devices N trains data-parallel
+over N processes on this host, one per card (0, the default, is every
+visible card, degraded to the largest count that divides --batch_size);
+under torchrun, or in a process whose caller has initialised the group,
+`main` joins that group. Every rank walks the same folds and permutations
+and trains on its rows of each batch (train/classifier.py); only rank 0
+writes the log, the checkpoints, kfold_progress.json and the confusion
+plots, and every rank resumes from the same step. Under the launcher
+`main` returns rank 0's records without their "state" (None): the states
+live in the ranks. Run from the command line in fp32 on the card, the
 trainer turns TF32 off for its process; `main()` called from other code
 leaves that switch to its caller.
 """
@@ -42,6 +49,7 @@ import torch
 from ..core.device import fp32_exact_on_cuda, resolve_device
 from ..data.dataset import SpeechMotionDataset
 from ..data.synthetic import SyntheticGestureDataset
+from ..parallel import distributed, mesh
 from ..train import classifier
 from ..utils.checkpoint import (GracefulShutdown, load_checkpoint,
                                 save_checkpoint)
@@ -96,7 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="bfloat16: fp32 master weights and Adam state, "
                              "forward and backward on a bf16 copy")
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="0 or 1: the port trains on one card")
+                        help="data-parallel processes on this host, one "
+                             "per card: 0 = every visible card (the largest "
+                             "count that divides --batch_size)")
     parser.add_argument("--prefetch", type=int, default=2,
                         help="host->device prefetch depth (pinned memory, "
                              "a side CUDA stream); 0 = synchronous")
@@ -125,11 +135,12 @@ class _ConcatDataset:
         raise IndexError
 
 
-def _refuse_unported(args) -> None:
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "the PyTorch port trains on one card: --num_devices > 1 is not "
-            "ported yet (ROADMAP.md queue 1, item 6)")
+def _rank_main(args, exact_fp32):
+    """One rank of a --num_devices run, with its launcher's TF32 setting:
+    its records without the states."""
+    if exact_fp32:
+        fp32_exact_on_cuda()
+    return [{**r, "state": None} for r in main(args)]
 
 
 def main(args=None):
@@ -140,7 +151,12 @@ def main(args=None):
         args = build_parser().parse_args()
     args = apply_preset(args, build_parser(), CLASSIFIER_FAST, argv=argv)
     device = resolve_device(args.device)
-    _refuse_unported(args)
+    ranks = mesh.plan(args, args.batch_size, device)
+    if ranks > 1 and not distributed.is_initialized():
+        return mesh.launch(_rank_main, ranks, args,
+                           not torch.backends.cudnn.allow_tf32,
+                           device=device.type)[0]
+    device = mesh.rank_device(device)
     set_logger(args.model_save_path, "train_audio_classifier_K_fold.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else device)
@@ -170,11 +186,13 @@ def main(args=None):
     def checkpoint_fn(state, fold, epoch, it):
         # the newest only: at (128, 124) the net and Adam's moments are
         # 3.4 GB a checkpoint, and --resume reads the newest
-        path = save_checkpoint(state, save_dir, max_to_keep=1)
-        progress_path.write_text(json.dumps(
-            {"fold": fold, "epoch": epoch, "iter": it}))
-        logging.info("saved %s (fold %d epoch %d iter %d)", path, fold + 1,
-                     epoch, it)
+        if distributed.is_primary():
+            path = save_checkpoint(state, save_dir, max_to_keep=1)
+            progress_path.write_text(json.dumps(
+                {"fold": fold, "epoch": epoch, "iter": it}))
+            logging.info("saved %s (fold %d epoch %d iter %d)", path,
+                         fold + 1, epoch, it)
+        distributed.barrier()
 
     resume_from = None
     if args.resume:
@@ -182,6 +200,7 @@ def main(args=None):
             args.seed, lr=args.lr,
             spec_shape=full[0]["spectrogram"].shape, device=device)
         state, ok = load_checkpoint(template, save_dir)
+        mesh.same_on_ranks(state.step, "the resumed step")
         if ok and progress_path.exists():
             fold = json.loads(progress_path.read_text())["fold"]
             resume_from = (state, fold)
@@ -191,15 +210,17 @@ def main(args=None):
             logging.warning("--resume: no checkpoint/progress found in %s - "
                             "starting fresh", save_dir)
 
-    with GracefulShutdown() as stop:
+    with GracefulShutdown() as signals:
         results = classifier.train_k_fold(
             full, test, batch_size=args.batch_size, epochs=args.total_epoch,
             lr=args.lr, eval_every=args.eval_every, seed=args.seed,
             max_folds=args.max_folds, checkpoint_fn=checkpoint_fn,
             compute_dtype=args.compute_dtype, prefetch=args.prefetch,
-            should_stop=lambda: stop.requested, resume_from=resume_from,
+            # a signal that reached one rank stops every rank at one step
+            should_stop=lambda: mesh.any_rank(signals.requested),
+            resume_from=resume_from,
             device=device)
-    for r in results:
+    for r in results if distributed.is_primary() else ():
         logging.info("Fold %d: Test Accuracy %.2f%%", r["fold"] + 1,
                      r["test_acc"])
         cm_path = str(save_dir / f"confusion_fold{r['fold'] + 1}.png")

@@ -33,12 +33,19 @@ with d_inner from --latent_dim and n_position from --n_poses; it keeps the
 JAX defaults: 400 warmup steps, no weight decay and the plateau reseed,
 which drops the plateaued attempt's checkpoint directory.
 
+Data parallelism, one process per card, for all three models, as in the
+GAN trainer (cli/train_emotion_gesture.py): --num_devices N, the multi-host
+flags (--coordinator_address, --num_processes, --process_id), torchrun or
+a group its caller initialised. Each rank trains on its rows of the global
+batch; the CVAE's frozen generator computes each rank's features (its
+TMMemory couples the global batch, as in one process); only rank 0 writes
+the log and the checkpoints. Under the launcher `main` returns (None, rank
+0's summary).
+
 Not ported yet, and refused with an error naming the ROADMAP.md item (queue
-1): more than one card or process (--num_devices > 1 and the multi-host
-flags; item 6), --cvae_version other than 3 (item 7). Run from the command
-line on the card, the trainer turns TF32 off for its process (every
-trainer here is fp32); `main()` called from other code leaves that switch
-to its caller.
+1): --cvae_version other than 3 (item 7). Run from the command line on the
+card, the trainer turns TF32 off for its process (every trainer here is
+fp32); `main()` called from other code leaves that switch to its caller.
 """
 from __future__ import annotations
 
@@ -54,9 +61,10 @@ import torch
 
 from ..core.device import fp32_exact_on_cuda, resolve_device
 from ..data.dataset import SpeechMotionDataset
-from ..data.pipeline import Prefetcher, place_batches
+from ..data.pipeline import Prefetcher, batch_rows, place_batches
 from ..data.synthetic import SyntheticGestureDataset
 from ..models.generator import GestureTransformer
+from ..parallel import distributed, mesh
 from ..train import cvae as cvae_train
 from ..train import fgd as fgd_train
 from ..train import skeleton as skeleton_train
@@ -66,6 +74,7 @@ from ..utils.checkpoint import (AsyncSaver, GracefulShutdown, latest_step,
 from ..utils.logging import set_logger
 from ..utils.profiling import StepTimer, guard_finite
 from .test_emotion_gesture_diversity_iterative import N_WORDS_SYNTHETIC
+from .train_emotion_gesture import add_multihost_flags
 
 # the fields each model's step reads: the collator assembles no other
 FIELDS = {"fgd": ("pose_seq",),
@@ -111,18 +120,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_every", type=int, default=100)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="0 or 1: the port trains on one card")
+                        help="data-parallel processes on this host, one "
+                             "per card: 0 = every visible card (the largest "
+                             "count that divides --batch_size)")
     parser.add_argument("--prefetch", type=int, default=2,
                         help="host->device prefetch depth; 0 = synchronous")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the latest checkpoint under "
                              "<model_save_path>/<model>/")
-    parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="multi-host runs: not ported")
-    parser.add_argument("--num_processes", type=int, default=None,
-                        help="multi-host runs: not ported")
-    parser.add_argument("--process_id", type=int, default=None,
-                        help="multi-host runs: not ported")
+    add_multihost_flags(parser)
     parser.add_argument("--plateau_patience", type=int, default=800,
                         help="skeleton only: steps without the trailing-"
                              "window mean train acc reaching --plateau_acc "
@@ -144,14 +150,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    if (args.num_devices > 1 or args.coordinator_address is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "the PyTorch port trains on one card in one process: "
-            "--num_devices > 1 and the multi-host flags are not ported yet "
-            "(ROADMAP.md queue 1, item 6)")
+def _rank_main(args, exact_fp32):
+    """One rank of a --num_devices run, with its launcher's TF32 setting:
+    its summary (the state stays)."""
+    if exact_fp32:
+        fp32_exact_on_cuda()
+    return main(args)[1]
 
 
 def _emotion_features(args, device):
@@ -178,6 +182,7 @@ def _emotion_features(args, device):
     else:
         logging.warning("no --generator_checkpoint: CVAE features come "
                         "from a randomly initialised generator")
+    distributed.broadcast_module(gen)
 
     @torch.no_grad()
     def features(batch):
@@ -210,7 +215,12 @@ def main(args=None):
     if args is None:
         args = build_parser().parse_args()
     device = resolve_device(args.device)
-    _refuse_unported(args)
+    ranks = mesh.plan(args, args.batch_size, device)
+    if ranks > 1 and not distributed.is_initialized():
+        return None, mesh.launch(
+            _rank_main, ranks, args, not torch.backends.cudnn.allow_tf32,
+            device=device.type)[0]
+    device = mesh.rank_device(device)
     set_logger(args.model_save_path, f"train_{args.model}.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else device)
@@ -226,6 +236,8 @@ def main(args=None):
             subdivision_stride=args.subdivision_stride,
             pose_resampling_fps=args.motion_resampling_framerate)
     state = _make_state(args, args.seed, device)
+    if ranks > 1:  # rank 0's weights on every rank
+        distributed.broadcast_module(state.module)
     plateau = None
     if args.model == "fgd":
         def step(st, batch, rng):
@@ -251,11 +263,13 @@ def main(args=None):
         state, ok = load_checkpoint(state, save_dir)
         if ok:
             logging.info("resumed %s from step %d", args.model, state.step)
+        mesh.same_on_ranks(state.step, "the resumed step")
 
     def epoch_batches(epoch):
         raw = dataset.batches(args.batch_size, shuffle=True,
                               seed=args.seed + epoch,
-                              fields=FIELDS[args.model])
+                              fields=FIELDS[args.model],
+                              rows=batch_rows(args.batch_size))
         if args.prefetch > 0:
             return Prefetcher(raw, device, buffer_size=args.prefetch)
         return contextlib.nullcontext(place_batches(raw, device))
@@ -264,14 +278,24 @@ def main(args=None):
     timer = StepTimer(device)
     metrics = {}
     saver = AsyncSaver()
+
+    def save():
+        if distributed.is_primary():
+            saver.save(state, save_dir)
+        distributed.barrier()
+
     start = time.time()
-    with GracefulShutdown() as stop:
+    with GracefulShutdown() as signals:
+        # a signal that reached one rank stops every rank at the same step
+        def stop():
+            return mesh.any_rank(signals.requested)
+
         for epoch in range(args.total_epoch):
-            if stop.requested:
+            if stop():
                 break
             with epoch_batches(epoch) as batches:
                 for batch in batches:
-                    if stop.requested:
+                    if stop():
                         logging.warning(
                             "shutdown requested - checkpointing at step %d "
                             "and exiting cleanly", global_iter)
@@ -294,8 +318,12 @@ def main(args=None):
                             args.max_reseeds)
                         state = _make_state(args, plateau.next_key(args.seed),
                                             device)
-                        saver.wait()
-                        shutil.rmtree(save_dir, ignore_errors=True)
+                        if ranks > 1:
+                            distributed.broadcast_module(state.module)
+                        if distributed.is_primary():
+                            saver.wait()
+                            shutil.rmtree(save_dir, ignore_errors=True)
+                        distributed.barrier()
                     if global_iter % 10 == 0:
                         m = {k: float(v) for k, v in metrics.items()}
                         guard_finite(m, "train metrics")
@@ -304,15 +332,16 @@ def main(args=None):
                                      {k: round(v, 4) for k, v in m.items()},
                                      time.time() - start)
                     if global_iter % args.save_every == 0:
-                        saver.save(state, save_dir)
-        saver.save(state, save_dir)
+                        save()
+        save()
         saver.close()  # the final checkpoint is on disk
+        distributed.barrier()
     wall_s = time.time() - start
     logging.info("done: %d iters in %.1fs%s", global_iter, wall_s,
-                 " (clean shutdown on signal)" if stop.requested else "")
+                 " (clean shutdown on signal)" if signals.requested else "")
     summary = {"steps": global_iter, "step_ms": timer.times_ms(),
                "metrics": {k: float(v) for k, v in metrics.items()},
-               "wall_s": wall_s, "device": str(device)}
+               "wall_s": wall_s, "device": str(device), "ranks": ranks}
     return state, summary
 
 

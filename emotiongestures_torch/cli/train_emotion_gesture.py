@@ -26,12 +26,24 @@ steps_per_epoch). SIGTERM or SIGINT ends the run at a step boundary with a
 checkpoint. --profile_dir writes a torch.profiler Chrome trace of
 --profile_steps steps from the fourth step of the run on.
 
+Data parallelism, one process per card (parallel/): --num_devices N > 1
+starts N processes on this host, one per card (0, the default, is every
+visible card, degraded to the largest count that divides --batch_size);
+--coordinator_address host:port --num_processes P --process_id i joins P
+processes on several hosts, each on the card of its local rank; under
+torchrun, or in a process whose caller has initialised the group, `main`
+joins that group. Each rank trains on its rows of the global batch with
+global-batch semantics (parallel/mesh.py); only rank 0 writes the log,
+metrics.jsonl and the checkpoints, and every rank resumes from the same
+step. Under the launcher `main` returns (None, None, rank 0's summary): the
+states live in the ranks.
+
 Not ported yet, and refused with an error naming the ROADMAP.md item (queue
-1): more than one card or process (--num_devices, --model_parallel, the
-multi-host flags; item 6) and the generator variants other than `memory`
-(item 7, refused by `train.gan.build_models`). Run from the command line
-in fp32 on the card, the trainer turns TF32 off for its process; `main()`
-called from other code leaves that switch to its caller.
+1): --model_parallel > 1 (tensor parallelism, item 6b) and the generator
+variants other than `memory` (item 7, refused by `train.gan.build_models`).
+Run from the command line in fp32 on the card, the trainer turns TF32 off
+for its process; `main()` called from other code leaves that switch to its
+caller.
 """
 from __future__ import annotations
 
@@ -47,9 +59,10 @@ import torch
 from ..core.device import fp32_exact_on_cuda, resolve_device
 from ..core.schedules import staged_lr
 from ..data.dataset import SpeechMotionDataset
-from ..data.pipeline import Prefetcher, place_batches
+from ..data.pipeline import Prefetcher, batch_rows, place_batches
 from ..data.synthetic import SyntheticGestureDataset
 from ..data.vocab import build_vocab
+from ..parallel import distributed, mesh
 from ..train import gan
 from ..utils.checkpoint import AsyncSaver, GracefulShutdown, load_checkpoint
 from ..utils.logging import MetricLogger, set_logger
@@ -103,12 +116,7 @@ def build_parser():
     parser.add_argument("--data_echo", type=int, default=1,
                         help="step each batch E times (fresh dropout draws "
                              "per echo); E multiplies the steps per epoch")
-    parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="multi-host runs: not ported")
-    parser.add_argument("--num_processes", type=int, default=None,
-                        help="multi-host runs: not ported")
-    parser.add_argument("--process_id", type=int, default=None,
-                        help="multi-host runs: not ported")
+    add_multihost_flags(parser)
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler Chrome trace of "
                              "--profile_steps steps, from the fourth step of "
@@ -117,15 +125,22 @@ def build_parser():
     return parser
 
 
-def _refuse_unported(args) -> None:
-    if (args.num_devices > 1 or args.model_parallel > 1
-            or args.coordinator_address is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "the PyTorch port trains on one card in one process: "
-            "--num_devices > 1, --model_parallel > 1 and the multi-host "
-            "flags are not ported yet (ROADMAP.md queue 1, item 6)")
+def add_multihost_flags(parser) -> None:
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="multi-host runs: host:port of process 0")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="multi-host runs: processes in all, one per "
+                             "card")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="multi-host runs: this process's index")
+
+
+def _rank_main(args, exact_fp32):
+    """One rank of a --num_devices run, with its launcher's TF32 setting:
+    its summary (the states stay)."""
+    if exact_fp32:
+        fp32_exact_on_cuda()
+    return main(args)[2]
 
 
 def main(args=None):
@@ -137,14 +152,23 @@ def main(args=None):
         args = build_parser().parse_args()
     args = apply_preset(args, build_parser(), GAN_TRAIN_FAST, argv=argv)
     device = resolve_device(args.device)
-    _refuse_unported(args)
     if args.cast_inputs and args.compute_dtype != "bfloat16":
         raise SystemExit("--cast_inputs requires --compute_dtype bfloat16")
     if args.data_echo < 1:
         raise SystemExit("--data_echo must be >= 1")
+    ranks = mesh.plan(args, args.batch_size, device)
+    if ranks > 1 and not distributed.is_initialized():
+        return None, None, mesh.launch(
+            _rank_main, ranks, args, not torch.backends.cudnn.allow_tf32,
+            device=device.type)[0]
+    device = mesh.rank_device(device)
     set_logger(args.model_save_path, "train_emotion_gesture.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else device)
+    if ranks > 1:
+        logging.info("data parallel: %d processes, global batch %d -> %d "
+                     "per rank", ranks, args.batch_size,
+                     args.batch_size // ranks)
     logging.info(pprint.pformat(vars(args)))
 
     if args.synthetic:
@@ -180,6 +204,9 @@ def main(args=None):
         update_order=args.update_order,
         d_concat_batch=args.d_concat_batch, grad_dtype=args.grad_dtype)
     gen_state, disc_state = gan.create_states(cfg, args.seed, device)
+    if ranks > 1:  # rank 0's weights on every rank
+        distributed.broadcast_module(gen_state.module)
+        distributed.broadcast_module(disc_state.module)
     gen_dir = os.path.join(args.model_save_path, "generator")
     disc_dir = os.path.join(args.model_save_path, "discriminator")
     if args.resume:
@@ -187,13 +214,15 @@ def main(args=None):
         disc_state, _ = load_checkpoint(disc_state, disc_dir)
         if ok:
             logging.info("resumed from step %d", gen_state.step)
+        mesh.same_on_ranks(gen_state.step, "the resumed step")
     float_dtype = torch.bfloat16 if args.cast_inputs else None
 
     def epoch_batches(epoch):
         """Batches through the host prefetcher: assembly, the optional
         bf16 cast and the copy to the card overlap the step."""
         raw = dataset.batches(args.batch_size, shuffle=True,
-                              seed=args.seed + epoch, fields=BATCH_KEYS)
+                              seed=args.seed + epoch, fields=BATCH_KEYS,
+                              rows=batch_rows(args.batch_size))
         if args.prefetch > 0:
             return Prefetcher(raw, device, buffer_size=args.prefetch,
                               float_dtype=float_dtype)
@@ -203,8 +232,10 @@ def main(args=None):
     saver = AsyncSaver()
 
     def save_all():
-        saver.save(gen_state, gen_dir)
-        saver.save(disc_state, disc_dir)
+        if distributed.is_primary():
+            saver.save(gen_state, gen_dir)
+            saver.save(disc_state, disc_dir)
+        distributed.barrier()
 
     ladder = staged_lr(args.lr)
     metrics_log = MetricLogger(
@@ -217,9 +248,13 @@ def main(args=None):
     timer = StepTimer(device)
     last = {}
     start = time.time()
-    with GracefulShutdown() as stop:
+    with GracefulShutdown() as signals:
+        # a signal that reached one rank stops every rank at the same step
+        def stop():
+            return mesh.any_rank(signals.requested)
+
         for epoch in range(args.total_epoch):
-            if stop.requested:
+            if stop():
                 break
             # epoch-indexed decisions follow the global epoch, as the
             # optimizer's ladder does: after --resume the loop restarts
@@ -229,7 +264,7 @@ def main(args=None):
             use_disc = global_epoch >= args.pose_dis_warm_epoch
             with epoch_batches(epoch) as batches:
                 for batch in batches:
-                    if stop.requested:
+                    if stop():
                         logging.warning(
                             "shutdown requested - checkpointing at step %d "
                             "and exiting cleanly", global_iter)
@@ -272,12 +307,13 @@ def main(args=None):
                 profile_at, global_iter)
         save_all()
         saver.close()  # the final checkpoint is on disk
+        distributed.barrier()
     wall_s = time.time() - start
     logging.info("done: %d iters in %.1fs%s", global_iter, wall_s,
-                 " (clean shutdown on signal)" if stop.requested else "")
+                 " (clean shutdown on signal)" if signals.requested else "")
     summary = {"steps": global_iter, "step_ms": timer.times_ms(),
                "metrics": {k: float(v) for k, v in last.items()},
-               "wall_s": wall_s, "device": str(device)}
+               "wall_s": wall_s, "device": str(device), "ranks": ranks}
     return gen_state, disc_state, summary
 
 

@@ -18,6 +18,13 @@ Train mode follows flax, not torch. BatchNorm normalises with the batch's
 batch-statistics forward that writes nothing. Dropout keeps with
 probability 1 - p, scales the kept values by 1 / (1 - p) and draws its mask
 from the generator that `dropout_generator` hands it.
+
+Under data parallelism (parallel/mesh.py) both follow the global batch, as
+GSPMD does in the JAX package: a train-mode BatchNorm takes its mean and
+E[x^2] from one differentiable all-reduce of (sum x, sum x^2) over the
+ranks, and the running statistics see those global values; a Dropout draws
+the mask of the global batch from its generator and keeps this rank's rows,
+so the masks are those of one process and no two ranks share one.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 
 def promoted(*tensors) -> torch.dtype:
@@ -98,9 +107,8 @@ class BatchNorm(nn.Module):
         out_dtype = promoted(x, self.weight, self.bias)
         if self.training:
             x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-            dims = [0] + list(range(2, x.ndim))
-            mean = x32.mean(dims)
-            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+            mean, ex2 = batch_moments(x32, [0] + list(range(2, x.ndim)))
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             if self.write_stats:
                 self.update_running(mean.detach(), var.detach())
             mul = torch.rsqrt(var + self.eps) * self.weight
@@ -119,6 +127,18 @@ class BatchNorm(nn.Module):
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+
+def batch_moments(x32: torch.Tensor, dims):
+    """(E[x], E[x^2]) over `dims`, over the global batch: under data
+    parallelism from one all-reduce of (sum x, sum x^2) (the counts are
+    equal on every rank)."""
+    if not mesh.active():
+        return x32.mean(dims), (x32 * x32).mean(dims)
+    n = x32.numel() // x32.shape[1] * mesh.world()
+    sums = mesh.all_reduce_sum(torch.stack([x32.sum(dims),
+                                            (x32 * x32).sum(dims)]))
+    return sums[0] / n, sums[1] / n
 
 
 @contextlib.contextmanager
@@ -140,9 +160,14 @@ def frozen_stats(module: nn.Module):
 class Dropout(nn.Dropout):
     """flax's dropout: keep with probability 1 - p, kept values divided by
     1 - p, in x's dtype. The mask comes from `generator` (see
-    `dropout_generator`); without one, from torch's default generator."""
+    `dropout_generator`); without one, from torch's default generator.
+    Under data parallelism the mask is this rank's rows of the global
+    batch's draw; `blocks` > 1 says that x is that many batches
+    concatenated along dim 0 (the discriminator's real and fake passes as
+    one), each of whose global draws gives this rank its rows."""
 
     generator = None
+    blocks = 1
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -150,25 +175,26 @@ class Dropout(nn.Dropout):
         keep = 1.0 - self.p
         if keep == 0.0:
             return torch.zeros_like(x)
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = mesh.global_rand(x.shape, self.generator, x.device,
+                                self.blocks) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
 
 @contextlib.contextmanager
-def dropout_generator(module: nn.Module, generator):
+def dropout_generator(module: nn.Module, generator, blocks: int = 1):
     """Every Dropout inside `module` draws its masks from `generator` (a
-    torch.Generator on the module's device) for the duration."""
+    torch.Generator on the module's device) for the duration; `blocks` as
+    in Dropout."""
     drops = [m for m in module.modules() if isinstance(m, Dropout)]
-    before = [d.generator for d in drops]
+    before = [(d.generator, d.blocks) for d in drops]
     for d in drops:
-        d.generator = generator
+        d.generator, d.blocks = generator, blocks
     try:
         yield
     finally:
-        for d, g in zip(drops, before):
-            d.generator = g
+        for d, (g, b) in zip(drops, before):
+            d.generator, d.blocks = g, b
 
 
 class LayerNorm(nn.LayerNorm):

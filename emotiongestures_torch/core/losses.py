@@ -8,6 +8,13 @@
 
 Every function computes in its inputs' dtype; the trainers upcast model
 outputs to fp32 before calling them, as the JAX package does.
+
+Under data parallelism (parallel/mesh.py) the two contrastive terms span
+the global batch, as under GSPMD: the features of every rank are gathered
+(differentiably), this rank's rows are the anchors against every column,
+and each rank's loss is its share of the one-process loss, so that the mean
+of the ranks' gradients is the one-process gradient. The other losses are
+means over this rank's rows, which is that share already.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -62,9 +71,12 @@ def softmax_contrastive_loss(feat_a: torch.Tensor,
                              feat_b: torch.Tensor) -> torch.Tensor:
     """SoftmaxContrastiveLoss (test_...py:80-127): l2-normalise both sets,
     a B x B inverse-distance similarity, cross-entropy against the
-    diagonal."""
-    cross = _inverse_distance(_l2_normalise(feat_a), _l2_normalise(feat_b))
-    labels = torch.arange(cross.shape[0], device=cross.device)
+    diagonal. Under data parallelism: this rank's rows of that matrix,
+    against every rank's `feat_b`."""
+    b_all = mesh.all_gather(_l2_normalise(feat_b))
+    cross = _inverse_distance(_l2_normalise(feat_a), b_all)
+    first = mesh.rank() * cross.shape[0]
+    labels = torch.arange(first, first + cross.shape[0], device=cross.device)
     return cross_entropy(cross, labels).mean()
 
 
@@ -73,18 +85,26 @@ def emotion_infonce(features: torch.Tensor,
     """Paired-clip emotion InfoNCE: clips sharing an emotion label are
     positives, every other clip of the batch a negative, with the
     reference's similarity kernel. A clip with no same-label partner in the
-    batch contributes zero. `features` (B, D), `labels` (B,) int."""
+    batch contributes zero. `features` (B, D), `labels` (B,) int. Under
+    data parallelism: this rank's anchors against the global batch, over
+    the global count of clips with a partner, times R (the ranks'
+    gradients are averaged)."""
     f = _l2_normalise(features)
-    sim = _inverse_distance(f, f)
+    f_all, labels_all = mesh.all_gather(f), mesh.all_gather(labels)
+    sim = _inverse_distance(f, f_all)
     b = features.shape[0]
-    eye = torch.eye(b, dtype=torch.bool, device=features.device)
-    pos = (labels[:, None] == labels[None, :]) & ~eye
+    first = mesh.rank() * b
+    rows = first + torch.arange(b, device=features.device)
+    cols = torch.arange(f_all.shape[0], device=features.device)
+    eye = rows[:, None] == cols[None, :]
+    pos = (labels[:, None] == labels_all[None, :]) & ~eye
     neg_inf = torch.tensor(float("-inf"), dtype=sim.dtype, device=sim.device)
     logp = torch.log_softmax(torch.where(eye, neg_inf, sim), dim=1)
     pos_logp = torch.logsumexp(torch.where(pos, logp, neg_inf), dim=1)
     has_pos = pos.any(dim=1)
     per_clip = torch.where(has_pos, -pos_logp, torch.zeros_like(pos_logp))
-    return per_clip.sum() / torch.clamp(has_pos.sum(), min=1)
+    count = mesh.all_reduce_sum(has_pos.sum())
+    return per_clip.sum() * mesh.world() / torch.clamp(count, min=1)
 
 
 def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@ stay numpy. On the CPU the arrays become tensors without a copy.
 `float_dtype` (the trainer's --cast_inputs: torch.bfloat16) casts every
 float32 array on the producer thread, before the copy, which halves the
 bytes moved. `place_batches` is the synchronous form (`--prefetch 0`).
+
+Under data parallelism each rank assembles and places only its rows of
+every global batch: the datasets' `batches(..., rows=batch_rows(B))` take
+them from the global order, which the run's seed fixes for every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +26,17 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import distributed, mesh
+
+
+def batch_rows(batch_size: int):
+    """This process's rows of every global batch of `batch_size` under data
+    parallelism (`parallel.distributed.process_batch_slice`); None, all
+    rows, in one process."""
+    if not mesh.active():
+        return None
+    return distributed.process_batch_slice(batch_size)
 
 
 class _Placer:

@@ -139,9 +139,12 @@ class SyntheticGestureDataset:
         }
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_last: bool = True, fields=None):
+                drop_last: bool = True, fields=None,
+                rows: slice | None = None):
         """Batches of `batch_size` samples in a seeded order; `fields`
-        restricts which keys are collated (see make_batch)."""
+        restricts which keys are collated (see make_batch); `rows` takes
+        that slice of each batch (a process's rows under data
+        parallelism)."""
         order = np.arange(self.n_samples)
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
@@ -152,6 +155,8 @@ class SyntheticGestureDataset:
         )
         for i in range(0, end, batch_size):
             window = order[i : i + batch_size]
+            if rows is not None:
+                window = window[rows]
             yield make_batch([self[j] for j in window], fields)
 
 

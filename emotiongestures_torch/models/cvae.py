@@ -5,7 +5,9 @@ Takes features (B, 60, 512) with the 60 frames as conv channels and a one-hot
 emotion (B, 8). `sample(y, noise=None, generator=None)` is the diversity
 prior: z ~ N(0, I) in fp32 from an explicit torch.Generator, or the caller's
 `noise`. z in fp32 promotes the decode that follows, so under bf16 weights
-the decoder computes in fp32, as in the JAX package.
+the decoder computes in fp32, as in the JAX package. Under data parallelism
+z is this rank's rows of the global batch's draw (parallel/mesh.py), as the
+JAX package's noise is a slice of one global draw.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch.nn as nn
 from ..core.device import resolve_device
 from ..core.layers import (BatchNorm, Conv1d, ConvTranspose1d, Dropout,
                            Linear, promoted)
+from ..parallel.mesh import global_randn
 
 
 def _lrelu():
@@ -68,8 +71,8 @@ class EmotionCVAEv3(nn.Module):
         mu, logvar = self.fc_mu(enc), self.fc_var(enc)
         std = torch.exp(0.5 * logvar)
         if noise is None:
-            noise = torch.randn(std.shape, generator=generator,
-                                device=std.device, dtype=std.dtype)
+            noise = global_randn(std.shape, generator, std.device,
+                                 std.dtype)
         z = noise * std + mu
         return self.fuse_decode(z, self.y_embed(y)), mu, logvar
 
@@ -78,7 +81,6 @@ class EmotionCVAEv3(nn.Module):
         `noise` (B, latent_dim) stands in for z when given."""
         post_y = self.y_embed(y)
         if noise is None:
-            noise = torch.randn((y.shape[0], self.latent_dim),
-                                generator=generator, device=y.device,
-                                dtype=torch.float32)
+            noise = global_randn((y.shape[0], self.latent_dim), generator,
+                                 y.device, torch.float32)
         return self.fuse_decode(noise, post_y)

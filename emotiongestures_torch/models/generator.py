@@ -10,7 +10,11 @@ forward(spec (B, 128, T), text (B, frames) int, prior (B, prior, pose_dim),
 Kept from the reference: unmasked attention, a decoder without
 self-attention or positional encoding, post-LN, and TMMemory's coupling of
 the batch (score = mem @ (mem^T @ pe) mixes the rows of a batch), so a batch
-of independent samples must go through as batches of one. Under bf16 weights
+of independent samples must go through as batches of one. Under data
+parallelism the batch is the global one: mem^T @ pe is a sum over the rows,
+taken on every rank and summed over the ranks (parallel/mesh.py), in train
+and in eval, so the coupling holds across ranks as GSPMD keeps it in the
+JAX package. Under bf16 weights
 `sampled (fp32) + semantic (bf16)` is fp32, so the fusion MLP, transformer and
 post projector compute in fp32 with bf16 weights; the poses come out fp32,
 the emotion/semantic features and logits bf16.
@@ -25,6 +29,7 @@ from ..core.layers import BatchNorm, Conv1d, Conv2d, Dropout, Linear
 from ..nn.resnet_se import ResNetSE
 from ..nn.tcn import TemporalConvNet
 from ..nn.transformer import TransformerDecoder, TransformerEncoder
+from ..parallel import mesh
 
 
 def _mlp(d_in, d_hid, d_out, mid):
@@ -104,9 +109,20 @@ class SPMemoryV1(nn.Module):
         return torch.cat([blended, pred[:, self.chunk:]], dim=1)
 
 
+def batch_coupling(mem: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
+    """mem^T @ pe (D, C), a sum over the rows of the global batch: under
+    data parallelism each rank's product in fp32, summed over the ranks in
+    one differentiable all-reduce and cast back to the product's type."""
+    if not mesh.active():
+        return mem.T @ pe
+    part = mem.T.float() @ pe.float()
+    return mesh.all_reduce_sum(part).to(torch.promote_types(mem.dtype,
+                                                            pe.dtype))
+
+
 class TMMemory(nn.Module):
     """Temporal memory (Models_memory.py:263-293): score = mem @ (mem^T @ pe)
-    couples the rows of the batch, as in the reference."""
+    couples the rows of the batch, as in the reference (`batch_coupling`)."""
 
     def __init__(self, prior_frames, pose_dim, chunk_length=10):
         super().__init__()
@@ -123,7 +139,7 @@ class TMMemory(nn.Module):
         mem = self.temporal_chunk_encoder(last)              # (B, D)
         head = pred[:, : self.chunk]
         pe = self.temporal_memory_encoder(head.reshape(B, -1))  # (B, C)
-        soft = torch.softmax(mem @ (mem.T @ pe), dim=1)
+        soft = torch.softmax(mem @ batch_coupling(mem, pe), dim=1)
         rescaled = head + head * soft[..., None]
         return torch.cat([rescaled, pred[:, self.chunk:]], dim=1)
 

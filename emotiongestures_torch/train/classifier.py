@@ -12,8 +12,12 @@ backward run on a bf16 copy (`core.precision.compute_params`), the focal
 loss in fp32, the BatchNorm statistics in fp32 into fp32 running buffers.
 
 The train state is updated in place: the state handed to `train_k_fold` as
-`resume_from` is the object that goes on training. Data parallelism over
-several cards (the JAX `mesh`) is ROADMAP.md queue 1, item 6.
+`resume_from` is the object that goes on training.
+
+Data parallelism (parallel/mesh.py, the JAX `mesh`): every rank walks the
+same folds and the same seeded permutations and takes its rows of each
+batch; the focal loss is a mean over the global batch, the accuracies are
+global means and the confusion matrix a sum over the ranks.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ from ..core import losses, schedules
 from ..core.device import resolve_device
 from ..core.precision import compute_params
 from ..data.constants import EMOTION_LABELS
-from ..data.pipeline import Prefetcher, place_batches
+from ..data.pipeline import Prefetcher, batch_rows, place_batches
 from ..models.emotion_net import EmotionNet
+from ..parallel import distributed, mesh
 from ..utils.profiling import StepTimer, guard_finite
 from .state import TrainState, eval_mode
 
@@ -67,7 +72,7 @@ def train_step(state: TrainState, spec: torch.Tensor,
     state.apply_gradients(torch.autograd.grad(loss, targets,
                                               allow_unused=True))
     acc = 100.0 * (out.detach().argmax(dim=1) == labels).float().mean()
-    return state, {"loss": loss.detach(), "acc": acc}
+    return state, mesh.mean_metrics({"loss": loss.detach(), "acc": acc})
 
 
 def eval_step(state: TrainState, spec: torch.Tensor,
@@ -80,7 +85,7 @@ def eval_step(state: TrainState, spec: torch.Tensor,
         x = spec if cdtype is None else spec.to(cdtype)
         preds = functional_call(model, params, (x,)).argmax(dim=1)
     acc = 100.0 * (preds == labels).float().mean()
-    return acc, preds, labels
+    return mesh.mean_metrics({"acc": acc})["acc"], preds, labels
 
 
 def confusion_matrix(preds, labels, n_classes: int = 8) -> np.ndarray:
@@ -140,11 +145,14 @@ def k_fold_indices(n: int, n_splits: int = 10, seed: int = 0):
         yield train, val
 
 
-def _index_batches(dataset, indices, batch_size: int):
+def _index_batches(dataset, indices, batch_size: int, rows=None):
     """{"spectrogram", "eid_label"} batches over `indices`, the last partial
-    batch dropped."""
+    batch dropped; `rows` takes that slice of each batch."""
     for i in range(0, len(indices) - batch_size + 1, batch_size):
-        samples = [dataset[int(j)] for j in indices[i : i + batch_size]]
+        window = indices[i : i + batch_size]
+        if rows is not None:
+            window = window[rows]
+        samples = [dataset[int(j)] for j in window]
         yield {
             "spectrogram": np.stack([s["spectrogram"] for s in samples]),
             "eid_label": np.stack([s["eid_label"] for s in samples]),
@@ -155,7 +163,8 @@ def _batch_stream(dataset, indices, batch_size: int, device, prefetch: int):
     """A context manager over the batches on `device`: prefetched by a host
     thread (the torch DataLoader workers + pin_memory role,
     train_...py:121-124), or synchronous with prefetch 0."""
-    raw = _index_batches(dataset, indices, batch_size)
+    raw = _index_batches(dataset, indices, batch_size,
+                         batch_rows(batch_size))
     if prefetch <= 0:
         return contextlib.nullcontext(place_batches(raw, device))
     return Prefetcher(raw, device, buffer_size=prefetch)
@@ -222,6 +231,8 @@ def train_k_fold(
             spec_shape = dataset[int(train_idx[0])]["spectrogram"].shape
             state = create_state(seed + fold, lr=lr, spec_shape=spec_shape,
                                  device=device)
+            if mesh.active():  # rank 0's weights on every rank
+                distributed.broadcast_module(state.module)
             global_iter = start_epoch = skip_batches = 0
         timer = StepTimer(device)
         for epoch in range(start_epoch, epochs):
@@ -304,4 +315,5 @@ def test_model(state: TrainState, dataset, batch_size: int,
                                         batch["eid_label"], compute_dtype)
             accs.append(float(acc))
             cm += confusion_matrix(preds.cpu().numpy(), lab.cpu().numpy())
+    cm = mesh.all_reduce_sum(torch.from_numpy(cm)).numpy()
     return (float(np.mean(accs)) if accs else 0.0), cm

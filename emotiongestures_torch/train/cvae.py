@@ -19,6 +19,7 @@ import torch
 from ..core import losses, schedules
 from ..core.layers import dropout_generator
 from ..models.cvae import EmotionCVAEv3
+from ..parallel import mesh
 from .gan import split_key
 from .state import TrainState, eval_mode
 
@@ -59,8 +60,9 @@ def train_step(state: TrainState, features: torch.Tensor,
     kl = losses.kl_divergence(mu, logvar)
     loss = rec + beta * kl
     state.minimize(loss)
-    return state, {"loss": loss.detach(), "recon": rec.detach(),
-                   "kl": kl.detach()}
+    return state, mesh.mean_metrics({"loss": loss.detach(),
+                                     "recon": rec.detach(),
+                                     "kl": kl.detach()})
 
 
 def sample(state: TrainState, y_onehot: torch.Tensor, rng: int,

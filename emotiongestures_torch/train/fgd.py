@@ -12,6 +12,7 @@ import torch
 from ..core import losses, schedules
 from ..core.layers import dropout_generator
 from ..models.fgd_ae import FGDAutoEncoder
+from ..parallel import mesh
 from .state import TrainState, eval_mode
 
 
@@ -35,7 +36,7 @@ def train_step(state: TrainState, poses: torch.Tensor, rng: int):
         recon, _ = model(poses)
     loss = losses.l1_loss(recon, poses)
     state.minimize(loss)
-    return state, {"loss": loss.detach()}
+    return state, mesh.mean_metrics({"loss": loss.detach()})
 
 
 def extract_features(state: TrainState, poses: torch.Tensor) -> torch.Tensor:

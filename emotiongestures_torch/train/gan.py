@@ -33,6 +33,7 @@ from ..core.layers import dropout_generator, frozen_stats
 from ..core.precision import compute_params
 from ..models.discriminator import MotionDiscriminator, calc_motion
 from ..models.generator import GestureTransformer
+from ..parallel import mesh
 from .state import TrainState, eval_mode
 
 # the compute dtype of cfg.compute_dtype; None is no cast: the modules'
@@ -174,7 +175,9 @@ def train_step(gen_state: TrainState, disc_state: TrainState, batch: dict,
         params, targets = compute_params(disc, cdtype, grad_mode)
         real_motion = calc_motion(cast(target))
         if cfg.d_concat_batch:
-            with dropout_generator(disc, d_rng_real):
+            # the 2B rows are two batches: under data parallelism each
+            # block's mask is this rank's rows of that block's global draw
+            with dropout_generator(disc, d_rng_real, blocks=2):
                 logits = functional_call(disc, params, (torch.cat(
                     [real_motion, calc_motion(fake)]),))
             real_logits, fake_logits = logits.chunk(2)
@@ -238,7 +241,7 @@ def train_step(gen_state: TrainState, disc_state: TrainState, batch: dict,
         metrics, fake = g_update()
         d_loss = d_update(fake) if use_disc else zero
     metrics["d_loss"] = d_loss
-    return gen_state, disc_state, metrics
+    return gen_state, disc_state, mesh.mean_metrics(metrics)
 
 
 def train_steps(gen_state: TrainState, disc_state: TrainState,

@@ -20,6 +20,7 @@ import torch
 from ..core import losses, schedules
 from ..core.layers import dropout_generator
 from ..models.skeleton_classifier import SkeletonTransformer
+from ..parallel import mesh
 from .gan import step_key
 from .state import TrainState, eval_mode
 
@@ -57,7 +58,7 @@ def train_step(state: TrainState, poses: torch.Tensor,
     loss = losses.cross_entropy(logits, labels).mean()
     state.minimize(loss)
     acc = 100.0 * (logits.detach().argmax(dim=1) == labels).float().mean()
-    return state, {"loss": loss.detach(), "acc": acc}
+    return state, mesh.mean_metrics({"loss": loss.detach(), "acc": acc})
 
 
 def predict(state: TrainState, poses: torch.Tensor):

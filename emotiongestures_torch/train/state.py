@@ -6,6 +6,16 @@ returns a new state per update. Here the module holds the parameters and,
 in its buffers, the BatchNorm running statistics; the optimizer holds
 Adam's moments; `apply_gradients` updates all of them in place and advances
 `step`.
+
+Under data parallelism (parallel/mesh.py) `apply_gradients` first takes the
+mean of the gradients over the ranks, one all-reduce per dtype, so the
+global norm that clipping reads and the update are the same on every rank:
+the step of one process on the global batch. Modules are not wrapped in
+DistributedDataParallel, which does not work with `torch.autograd.grad`.
+Gradients are reduced after the upcast to the parameters' fp32: under
+grad_dtype="bfloat16" each rank's bf16 gradient of its rows is summed in
+fp32, where one process rounds the global batch's gradient to bf16 once,
+so the two differ by the bf16 rounding of the partial sums.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn as nn
+
+from ..parallel import mesh
 
 
 @dataclass
@@ -39,10 +51,12 @@ class TrainState:
         """One optimizer update. `grads` follows `module.parameters()`; a
         None is a zero gradient, as JAX gives a parameter the loss does not
         reach (Adam still moves it by its moments). Gradients of another
-        dtype (bf16 under grad_dtype="bfloat16") are upcast here."""
+        dtype (bf16 under grad_dtype="bfloat16") are upcast here, then
+        averaged over the data-parallel ranks."""
         params = list(self.module.parameters())
-        grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
-                 for p, g in zip(params, grads)]
+        grads = mesh.all_reduce_mean(
+            [torch.zeros_like(p) if g is None else g.to(p.dtype)
+             for p, g in zip(params, grads)])
         if self.grad_clip > 0:
             grads = clip_by_global_norm(grads, self.grad_clip)
         for p, g in zip(params, grads):

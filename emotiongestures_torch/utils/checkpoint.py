@@ -12,7 +12,10 @@ commit, so a kill mid-write leaves nothing `latest_step` would pick up.
 `AsyncSaver` copies the state to host memory on the calling thread and
 writes on one worker thread; `GracefulShutdown` turns SIGTERM / SIGINT into
 a flag the train loop polls; one writer process holds each checkpoint
-directory (a lock file with its pid and /proc start-time token).
+directory (a lock file with its pid and /proc start-time token). Under data
+parallelism only the primary process writes (a save on another rank
+raises before it reaches the lock), every rank waits at a barrier after
+each save, and on resume every rank reads the same file.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from ..parallel.distributed import is_primary, process_index
 
 _NAME = re.compile(r"checkpoint_iteration(\d+)\.pt")
 _LOCK = ".egtp_writer.lock"
@@ -71,6 +76,13 @@ def _holder_alive(pid: int, token: str) -> bool:
         if now is not None and now != token:
             return False  # the pid was recycled since the lock was written
     return True
+
+
+def _primary_only() -> None:
+    if not is_primary():
+        raise RuntimeError(
+            f"rank {process_index()} tried to write a checkpoint: only the "
+            f"primary process writes")
 
 
 def _acquire_writer_lock(directory: Path) -> None:
@@ -178,6 +190,7 @@ def save_checkpoint(state, directory, step: int | None = None,
     """Write `state` (a train state: module, optimizer, step) under
     `directory`, keeping the newest `max_to_keep` (None keeps all).
     Blocking; a train loop uses AsyncSaver."""
+    _primary_only()
     directory = Path(directory).absolute()
     directory.mkdir(parents=True, exist_ok=True)
     _acquire_writer_lock(directory)
@@ -205,6 +218,7 @@ class AsyncSaver:
 
     def save(self, state, directory, step: int | None = None,
              max_to_keep: int | None = 5) -> None:
+        _primary_only()
         directory = Path(directory).absolute()
         directory.mkdir(parents=True, exist_ok=True)
         _acquire_writer_lock(directory)

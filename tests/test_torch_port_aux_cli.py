@@ -108,11 +108,12 @@ def test_cvae_features_from_a_generator_checkpoint(run_dir):
 @pytest.mark.parametrize("flags,error,match", [
     (["--model", "fgd", "--synthetic", "0", "--train_data_path",
       "missing/train"], FileNotFoundError, "no GestureStore"),
-    (["--model", "fgd", "--num_devices", "2"], NotImplementedError,
-     "item 6"),
-    (["--model", "fgd", "--coordinator_address", "localhost:1234"],
-     NotImplementedError, "item 6"),
-    (["--model", "fgd", "--process_id", "0"], NotImplementedError, "item 6"),
+    (["--model", "fgd", "--num_devices", "3"], SystemExit, "divisible"),
+    (["--model", "fgd", "--coordinator_address", "localhost:1234",
+      "--num_processes", "3", "--process_id", "0"], SystemExit,
+     "must divide"),
+    (["--model", "fgd", "--coordinator_address", "localhost:1234",
+      "--num_processes", "2", "--process_id", "2"], SystemExit, "outside"),
     (["--model", "cvae", "--cvae_version", "2"], NotImplementedError,
      "item 7"),
     (SKELETON + ["--grad_clip", "-0.5"], ValueError, "grad_clip"),

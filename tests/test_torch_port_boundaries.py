@@ -125,10 +125,43 @@ def test_entry_points_default_to_cuda():
         lambda: aux_cli.main(aux_cli.build_parser().parse_args(
             ["--model", "fgd"])),
         lambda: kfold_cli.main(kfold_cli.build_parser().parse_args([])),
+        # data parallelism: --num_devices and the multi-host flags change
+        # nothing of the rule
+        lambda: eval_cli.main(eval_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--test_batch_size", "8", "--num_devices",
+             "2"])),
+        lambda: train_cli.main(train_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--batch_size", "8", "--num_devices", "2"])),
+        lambda: train_cli.main(train_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--batch_size", "8",
+             "--coordinator_address", "localhost:1", "--num_processes", "2",
+             "--process_id", "0"])),
+        lambda: aux_cli.main(aux_cli.build_parser().parse_args(
+            ["--model", "fgd", "--synthetic", "8", "--batch_size", "8",
+             "--num_devices", "2", "--coordinator_address", "localhost:1",
+             "--num_processes", "2", "--process_id", "0"])),
+        lambda: kfold_cli.main(kfold_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--batch_size", "8", "--num_devices",
+             "2"])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_package_data_holds_every_kernel_source():
+    """An installed port carries every source it builds at run time (the
+    CUDA kernels and the C++ batch gather)."""
+    import fnmatch
+    import tomllib
+
+    conf = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["emotiongestures_torch"]
+    sources = [p.relative_to(PORT).as_posix()
+               for p in (PORT / "csrc").iterdir()]
+    assert sources
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, g) for g in globs), src
 
 
 def test_codec_is_built_from_the_ports_own_source():
@@ -195,3 +228,24 @@ def test_render_flag_raises_clearly():
     args = demo.build_parser().parse_args(["--render", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="render"):
         demo.main(args)
+
+
+@pytest.mark.cuda
+def test_dropout_masks_across_ranks_on_card():
+    """Two gloo ranks on the card draw the dropout masks of the global batch
+    and keep their rows: together the one-process masks, and different
+    from each other (a mask shared across ranks would pass loss checks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks draw their masks there")
+    import torch_port_parallel_common as P
+
+    from emotiongestures_torch.parallel import mesh
+
+    ref = P.masks_case("cuda")
+    m0, m1 = (r for r in mesh.launch(P.masks_case, 2, "cuda", device="cuda",
+                                     backend="gloo", timeout=P.TIMEOUT))
+    half = P.B // 2
+    assert np.array_equal(np.concatenate([m0[1], m1[1]]), ref[1])
+    assert not np.array_equal(m0[1], m1[1])
+    assert np.array_equal(m0[2], np.concatenate([ref[2][:half],
+                                                 ref[2][P.B:P.B + half]]))

@@ -87,7 +87,7 @@ def test_resume_continues_the_fold(run_dir):
 @pytest.mark.parametrize("flags,error,match", [
     (["--synthetic", "0", "--train_data_path", "missing/train"],
      FileNotFoundError, "no GestureStore"),
-    (["--num_devices", "2"], NotImplementedError, "item 6"),
+    (["--num_devices", "100000"], SystemExit, "visible"),
 ], ids=["real-data", "devices"])
 def test_refusals(run_dir, flags, error, match):
     with pytest.raises(error, match=match):

@@ -98,10 +98,10 @@ def test_profile_dir_writes_a_trace(run_dir, tmp_path):
 @pytest.mark.parametrize("extra,error,match", [
     (["--synthetic", "0", "--train_data_path", "missing/train"],
      FileNotFoundError, "no GestureStore"),
-    (["--num_devices", "2"], NotImplementedError, "item 6"),
+    (["--num_devices", "100000"], SystemExit, "visible"),
     (["--model_parallel", "2"], NotImplementedError, "item 6"),
-    (["--coordinator_address", "localhost:1234"], NotImplementedError,
-     "item 6"),
+    (["--coordinator_address", "localhost:1234", "--num_processes", "3",
+      "--process_id", "0"], SystemExit, "must divide"),
     (["--variant", "base"], NotImplementedError, "item 7"),
 ], ids=["real-data", "devices", "model-parallel", "multi-host", "variant"])
 def test_unported_paths_are_refused(run_dir, extra, error, match):

@@ -29,6 +29,7 @@ from emotiongestures_tpu.utils.torch_port import (
 )
 from emotiongestures_torch.core.layers import Dropout
 from emotiongestures_torch.train import gan as tgan
+from torch_port_parallel_common import TinySpectrograms  # noqa: F401
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
@@ -276,21 +277,3 @@ def assert_counts(snap, jstate, n):
     assert snap["step"] == int(jstate.step) == n
     assert snap["adam_count"] == {n}
     assert int(np.asarray(adam_state(jstate.opt_state).count)) == n
-
-
-class TinySpectrograms:
-    """An in-memory stand-in for the synthetic set in the classifier's
-    tests: `shape` spectrograms ((32, 32): EmotionNet's fc0 is then
-    4096 x 4096), one-hot labels cycling through the 8 classes."""
-
-    def __init__(self, n_samples, seed=0, shape=(32, 32), **_):
-        r = np.random.RandomState(seed)
-        self.items = [{"spectrogram": r.randn(*shape).astype(np.float32),
-                       "eid_label": np.eye(8, dtype=np.float32)[i % 8]}
-                      for i in range(n_samples)]
-
-    def __len__(self):
-        return len(self.items)
-
-    def __getitem__(self, i):
-        return self.items[i]
