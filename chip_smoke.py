@@ -113,7 +113,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      launches per eval_batch per rank); with a second card, the trainer
      with `--num_devices 2` over NCCL. ms per step and per eval_batch of
      each rank (two processes time-slicing one card: not a scaling figure)
-     and the phase's wall.
+     and the phase's wall;
+ 11. the data-migration path, in phase 9's temp directory: 11a a raw clip
+     LMDB of 9a's 68 clips (one video per record, its clip nested, a seeded
+     float16 audio_feat each; written with the port's arrow014.serialize
+     and tests/fixtures/make_lmdb_fixture.py's write_lmdb) through
+     `convert_data clips` (every field equal to its source) and
+     DataPreprocessor's 'pallas' frontend: 2108 windows equal to 9a's byte
+     for byte, 68 mel launches; 11b a BEAT-layout cache LMDB (5-tuples) of
+     9a's 2108 windows through `convert_data cache`: the store equals 9a's
+     byte for byte, and the eval CLI's `main` on it with 9b's flags gives
+     9b's metrics (MIGRATED_EVAL_REL) with 6 attention launches per
+     eval_batch; a TED-layout cache LMDB (6-tuples with vec_seq) of 300
+     windows at TED's shapes converts with every field equal; 11c
+     BeatAlignerV1 over the converted windows with the onset frontend on
+     the card and on the host (BEAT_FRONTEND_TOL), and `convert_data
+     wordvec` on 9b's vocab_all.pkl and a seeded 300-d .vec, installed by
+     `set_pretrained_embedding` in the flagship generator on the card: the
+     rows equal the .npy and a forward at batch 1024 is finite (6
+     attention launches). Each conversion's wall, records/s and MB/s, the
+     LMDB sizes and depths, and the phase's wall.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -136,6 +155,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
+from emotiongestures_torch.cli import convert_data as convert_cli  # noqa: E402,E501
 from emotiongestures_torch.cli import demo  # noqa: E402
 from emotiongestures_torch.cli import (  # noqa: E402
     test_emotion_gesture_diversity_iterative as eval_cli,
@@ -156,7 +176,9 @@ from emotiongestures_torch.ops import fused_attention as FA  # noqa: E402
 from emotiongestures_torch.ops import fused_mel as FM  # noqa: E402
 from emotiongestures_torch.ops import fused_se_stage as FS  # noqa: E402
 from emotiongestures_torch.ops import mel as M  # noqa: E402
+from emotiongestures_torch.data import arrow014  # noqa: E402
 from emotiongestures_torch.data import dataset as dataset_mod  # noqa: E402
+from emotiongestures_torch.data.lmdb_reader import LmdbEnv  # noqa: E402
 from emotiongestures_torch.data.preprocessing import (  # noqa: E402
     DataPreprocessor,
 )
@@ -168,6 +190,7 @@ from emotiongestures_torch.data.synthetic import (  # noqa: E402
     SyntheticGestureDataset,
 )
 from emotiongestures_torch.data.vocab import Vocab, build_vocab  # noqa: E402
+from emotiongestures_torch.eval.beat import BeatAlignerV1  # noqa: E402
 from emotiongestures_torch.models import generator as gen_mod  # noqa: E402
 from emotiongestures_torch.nn import transformer as T  # noqa: E402
 from emotiongestures_torch.nn.resnet_se import SEBasicBlock  # noqa: E402
@@ -1652,8 +1675,7 @@ def phase_preprocess(card, work: Path, counts):
     plain.close()
     shutil.rmtree(work / "xla")
     size = kernel.offsets[-1]
-    kernel.close()
-    shutil.rmtree(clips)
+    kernel.close()  # the clip store stays for phase 11a
     log(f"  [{card}] {n} windows ({size / 1e6:.1f} MB) from each frontend; "
         f"spectrograms within {err:.4f} dB (atol {SPEC_DB_TOL}), every other "
         f"field equal; mel launches {launches} = one per clip")
@@ -2279,6 +2301,356 @@ def dp_all_rank(work: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data-migration path, reference LMDBs -> GestureStores
+# ---------------------------------------------------------------------------
+
+# a TED-layout cache: windows of 34 frames (10 joints, 9 dir-vecs), 36267
+# audio samples, (128, 70) spectrograms (lmdb_data_loader.py:104-113)
+TED_WINDOWS = 300
+# the eval's metrics on the converted store against 9b's, relative
+MIGRATED_EVAL_REL = 1e-6
+# BeatAlignerV1's batch score over 2108 windows, the card's onset frontend
+# (fp32 DFT) against the host's (fp64), absolute. The first reading on an
+# H100 80GB HBM3 at 700 W was 0 (the same onsets in every window); one
+# onset moved in one window moves the mean by at most ~1/2108 ~ 5e-4, so
+# this admits a rounding tie or two and fails a frontend fault that moves
+# onsets across the batch
+BEAT_FRONTEND_TOL = 1e-3
+
+
+def write_lmdb(path: Path, items: dict) -> Path:
+    """The LMDB writer of tests/fixtures/make_lmdb_fixture.py (the mdb.c
+    spec, imports neither package); the port itself writes no LMDB."""
+    sys.path.insert(0, str(REPO / "tests" / "fixtures"))
+    try:
+        from make_lmdb_fixture import write_lmdb as write
+    finally:
+        sys.path.pop(0)
+    return write(path, items)
+
+
+def lmdb_line(path: Path) -> str:
+    with LmdbEnv(path) as env:
+        size = env.path.stat().st_size
+        return (f"{len(env)} entries, {size / 1e6:.1f} MB, depth "
+                f"{env.depth}"), size
+
+
+def convert(command: str, src: Path, out: Path, what: str):
+    """convert_data's main on one LMDB: (records, wall s)."""
+    t0 = time.perf_counter()
+    n = convert_cli.main(convert_cli.build_parser().parse_args(
+        [command, "--lmdb", str(src), "--out", str(out)]))
+    wall = time.perf_counter() - t0
+    size = (src / "data.mdb").stat().st_size
+    log(f"  convert_data {command} ({what}): {n} records in {wall:.2f} s, "
+        f"{n / wall:.1f} records/s, {size / 1e6 / wall:.1f} MB/s of LMDB")
+    return n, wall
+
+
+def same_values(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def first_difference(got: Path, want: Path):
+    """None if two stores hold the same records field for field, else
+    (record, field)."""
+    a, b = GestureStore(got), GestureStore(want)
+    try:
+        if len(a) != len(b):
+            return ("count", len(a), len(b))
+        for i in range(len(a)):
+            ra, rb = a[i], b[i]
+            if ra.keys() != rb.keys():
+                return (i, "keys")
+            for k in ra:
+                if not same_values(ra[k], rb[k]):
+                    return (i, k)
+        return None
+    finally:
+        a.close()
+        b.close()
+
+
+def same_store_bytes(got: Path, want: Path) -> bool:
+    return all((got / f).read_bytes() == (want / f).read_bytes()
+               for f in ("index.npy", "data.bin"))
+
+
+def phase_migrate_clips(card, work: Path, counts):
+    """11a: 9a's clip store -> a raw clip LMDB -> convert_data clips ->
+    DataPreprocessor ('pallas') -> 9a's windows."""
+    log(f"phase 11a: a raw clip LMDB of 9a's {STORE_CLIPS} clips (one video "
+        "per record, its clip nested, a seeded float16 audio_feat each) -> "
+        "convert_data clips -> DataPreprocessor 'pallas'")
+    rng = np.random.RandomState(11)
+    src = GestureStore(work / "clips")
+    n_feat = 1 + CLIP_S * M.SR // 512
+    t0 = time.perf_counter()
+    items, clips = {}, []
+    for i in range(len(src)):
+        rec = src[i]
+        aux = rec["aux_info"]
+        clip = {"skeletons_3d": rec["skeletons_3d"],
+                "audio_feat": rng.randn(128, n_feat).astype(np.float16),
+                "audio_raw": rec["audio_raw"], "words": rec["words"],
+                "eid": aux["eid"], "start_frame_no": aux["start_frame_no"],
+                "end_frame_no": aux["end_frame_no"],
+                "start_time": aux["start_time"], "end_time": aux["end_time"]}
+        clips.append((clip, aux))
+        items[f"{i:010d}".encode()] = arrow014.serialize(
+            {"vid": aux["vid"], "clips": [clip]})
+    ser_s = time.perf_counter() - t0
+    lmdb = write_lmdb(work / "clips_lmdb", items)
+    write_s = time.perf_counter() - t0 - ser_s
+    del items
+    desc, size = lmdb_line(lmdb)
+    log(f"  clip LMDB: {desc}; arrow014.serialize {ser_s:.2f} s "
+        f"({len(clips) / ser_s:.1f} videos/s), LMDB write {write_s:.2f} s")
+    n, conv_s = convert("clips", lmdb, work / "clips_conv", "raw clips")
+    got = GestureStore(work / "clips_conv")
+    if n != STORE_CLIPS or len(got) != STORE_CLIPS:
+        raise SystemExit(f"11a: {n} clip records (want {STORE_CLIPS})")
+    for i, (clip, aux) in enumerate(clips):
+        rec = got[i]
+        want = {"skeletons_3d": clip["skeletons_3d"],
+                "audio_feat": clip["audio_feat"],
+                "audio_raw": clip["audio_raw"], "words": clip["words"],
+                "aux_info": aux}
+        if rec.keys() != want.keys() or not all(
+                same_values(rec[k], want[k]) for k in want):
+            raise SystemExit(f"11a: converted clip {i} differs from its "
+                             "source")
+    got.close()
+    src.close()
+    shutil.rmtree(lmdb)
+    n_win, wall, launches = preprocess(work / "clips_conv",
+                                       work / "conv_clips" / "test_cache",
+                                       "pallas")
+    want = STORE_CLIPS * WINDOWS_PER_CLIP
+    if n_win != want or launches != STORE_CLIPS:
+        raise SystemExit(f"11a: {n_win} windows (want {want}), mel launches "
+                         f"{launches} (want {STORE_CLIPS})")
+    counts["mel"] += launches
+    mine, ref = work / "conv_clips" / "test_cache", work / "beat" / \
+        "test_cache"
+    diff = None if same_store_bytes(mine, ref) else \
+        first_difference(mine, ref)
+    if diff is not None:
+        raise SystemExit(f"11a: windows differ from 9a's at {diff}")
+    shutil.rmtree(work / "conv_clips")
+    shutil.rmtree(work / "clips_conv")
+    shutil.rmtree(work / "clips")
+    log(f"  [{card}] every clip field equals its source; {n_win} windows "
+        f"equal to 9a's 'pallas' windows byte for byte (data.bin, "
+        f"index.npy); mel launches {launches} = one per clip; "
+        f"preprocessing wall {wall:.2f} s")
+    return {"lmdb_bytes": int(size), "serialize_s": ser_s,
+            "lmdb_write_s": write_s, "convert_s": conv_s,
+            "preprocess_s": wall, "windows": n_win, "mel_launches": launches}
+
+
+def phase_migrate_windows(card, work: Path, counts, store_eval):
+    """11b: 9a's windows -> a BEAT-layout cache LMDB -> convert_data cache
+    -> 9a's store bytes -> the eval CLI as in 9b; a TED-layout cache."""
+    log(f"phase 11b: a BEAT-layout cache LMDB (5-tuples) of 9a's "
+        f"{STORE_CLIPS * WINDOWS_PER_CLIP} windows -> convert_data cache -> "
+        "the eval CLI with 9b's flags")
+    ref = work / "beat" / "test_cache"
+    windows = GestureStore(ref)
+    t0 = time.perf_counter()
+    items = {}
+    for i in range(len(windows)):
+        r = windows[i]
+        items[f"{i:010d}".encode()] = arrow014.serialize(
+            [r["word_seq"], r["pose_seq"], r["audio"], r["spectrogram"],
+             r["aux_info"]])
+    ser_s = time.perf_counter() - t0
+    lmdb = write_lmdb(work / "beat_lmdb", items)
+    write_s = time.perf_counter() - t0 - ser_s
+    n_items = len(items)
+    del items
+    windows.close()
+    desc, size = lmdb_line(lmdb)
+    log(f"  BEAT cache LMDB: {desc}; arrow014.serialize {ser_s:.2f} s "
+        f"({n_items / ser_s:.1f} windows/s), LMDB write {write_s:.2f} s")
+    conv = work / "migrated" / "test_cache"
+    n, conv_s = convert("cache", lmdb, conv, "BEAT windows")
+    shutil.rmtree(lmdb)
+    if n != n_items:
+        raise SystemExit(f"11b: {n} records (want {n_items})")
+    if not same_store_bytes(conv, ref):
+        diff = first_difference(conv, ref) or "bytes only, fields equal"
+        raise SystemExit(f"11b: the converted store differs from 9a's: "
+                         f"{diff}")
+    log(f"  [{card}] the converted store equals 9a's byte for byte "
+        f"(data.bin {conv.joinpath('data.bin').stat().st_size / 1e6:.1f} MB,"
+        " index.npy)")
+
+    args = eval_cli.build_parser().parse_args([
+        "--test_data_path", str(work / "migrated" / "test"),
+        "--test_batch_size", str(BATCH), "--preset", "fast",
+        "--num_diversity_passes", "2", "--device", DEVICE,
+        "--log_save_path", str(work / "eval_logs_migrated")])
+    reset_counts()
+    summary = eval_cli.main(args)
+    n_attn = FA.launches
+    calls = summary["timings"]["eval_batch_calls"]
+    rel = {k: abs(summary[k] - store_eval[k]) / max(abs(store_eval[k]),
+                                                     1e-30)
+           for k in METRICS}
+    worst = max(rel.values())
+    if n_attn != 6 * calls or calls != store_eval["timings"][
+            "eval_batch_calls"]:
+        raise SystemExit(f"11b: {calls} eval_batch calls, attention "
+                         f"launches {n_attn} (want 6 per call)")
+    if worst > MIGRATED_EVAL_REL:
+        raise SystemExit(f"11b: metrics differ from 9b's: {rel}")
+    counts["fused_attention"] += n_attn
+    log(f"  [{card}] eval on the converted store: " + ", ".join(
+        f"{k} {summary[k]:.5f}" for k in METRICS)
+        + f"; largest relative difference from 9b's {worst:.3e} "
+        f"(limit {MIGRATED_EVAL_REL}); attention launches {n_attn} = 6 x "
+        f"{calls}; eval wall {summary['timings']['wall_s']:.2f} s")
+
+    log(f"phase 11b (TED): a TED-layout cache LMDB (6-tuples with vec_seq) "
+        f"of {TED_WINDOWS} windows at TED's shapes -> convert_data cache")
+    rng = np.random.RandomState(12)
+    ted = []
+    for i in range(TED_WINDOWS):
+        ted.append([
+            [[f"t{j}", 0.4 * j, 0.4 * j + 0.3] for j in range(2 + i % 4)],
+            rng.randn(34, 10, 3).astype(np.float32),
+            rng.randn(34, 9, 3).astype(np.float32),
+            rng.randn(36267).astype(np.float32),
+            (20 * rng.rand(128, 70) - 60).astype(np.float16),
+            {"vid": f"ted{i // 10}", "start_frame_no": 34 * (i % 10),
+             "end_frame_no": 34 * (i % 10) + 34,
+             "start_time": 1.36 * (i % 10),
+             "end_time": 1.36 * (i % 10) + 1.36}])
+    ted_lmdb = write_lmdb(work / "ted_lmdb", {
+        f"{i:010d}".encode(): arrow014.serialize(v)
+        for i, v in enumerate(ted)})
+    ted_desc, _ = lmdb_line(ted_lmdb)
+    log(f"  TED cache LMDB: {ted_desc}")
+    n_ted, ted_s = convert("cache", ted_lmdb, work / "ted_conv",
+                           "TED windows")
+    got = GestureStore(work / "ted_conv")
+    names = ("word_seq", "pose_seq", "vec_seq", "audio", "spectrogram",
+             "aux_info")
+    for i, v in enumerate(ted):
+        rec = got[i]
+        if list(rec) != ["word_seq", "pose_seq", "audio", "spectrogram",
+                         "aux_info", "vec_seq"] or not all(
+                same_values(rec[k], x) for k, x in zip(names, v)):
+            raise SystemExit(f"11b (TED): window {i} differs from its "
+                             "source")
+    got.close()
+    if n_ted != TED_WINDOWS:
+        raise SystemExit(f"11b (TED): {n_ted} records")
+    shutil.rmtree(ted_lmdb)
+    shutil.rmtree(work / "ted_conv")
+    log(f"  [{card}] {n_ted} TED windows, every field equal to its source")
+    return {"lmdb_bytes": int(size), "serialize_s": ser_s,
+            "lmdb_write_s": write_s, "convert_s": conv_s,
+            "eval": {k: summary[k] for k in METRICS},
+            "eval_max_rel": worst, "eval_wall_s": summary["timings"][
+                "wall_s"], "attention_launches": n_attn,
+            "ted_convert_s": ted_s}
+
+
+def phase_migrate_extras(card, work: Path, counts):
+    """11c: BeatAlignerV1 on the converted store (the card's onset
+    frontend and the host's); convert_data wordvec on 9b's vocabulary ->
+    set_pretrained_embedding in the flagship generator on the card."""
+    store = GestureStore(work / "migrated" / "test_cache")
+    idx = np.arange(len(store))
+    audio = store.batch_field(idx, "audio")
+    poses = store.batch_field(idx, "pose_seq")
+    store.close()
+    log(f"phase 11c: BeatAlignerV1 over the converted store's {len(idx)} "
+        "windows, the onset frontend on the card and on the host")
+    aligner = BeatAlignerV1()
+    t0 = time.perf_counter()
+    on_card = aligner.score_batch(audio, poses, device_frontend=True,
+                                  device=DEVICE)
+    card_s = time.perf_counter() - t0
+    on_host = aligner.score_batch(audio, poses)
+    host_s = time.perf_counter() - t0 - card_s
+    diff = abs(on_card - on_host)
+    log(f"  [{card}] BeatAlignerV1: card frontend {on_card:.6f} "
+        f"({card_s:.2f} s), host frontend {on_host:.6f} ({host_s:.2f} s); "
+        f"|difference| {diff:.3e} (limit {BEAT_FRONTEND_TOL})")
+    if not np.isfinite(on_card) or diff > BEAT_FRONTEND_TOL:
+        raise SystemExit("11c: the card's onset frontend disagrees with "
+                         "the host's")
+
+    log("phase 11c (wordvec): convert_data wordvec on 9b's vocab_all.pkl "
+        "and a seeded 300-d .vec -> set_pretrained_embedding in the "
+        "flagship generator on the card, a forward at batch "
+        f"{BATCH}")
+    vocab_path = work / "beat" / "vocab_all.pkl"
+    vocab = Vocab.load(vocab_path)
+    rng = np.random.RandomState(13)
+    words = sorted(vocab.word2index) + [f"oov{k}" for k in range(20)]
+    vec = work / "wordvec" / "vectors.vec"
+    vec.parent.mkdir()
+    vec.write_text(f"{len(words)} 300\n" + "".join(
+        w + " " + " ".join(f"{x:.5f}" for x in rng.randn(300)) + "\n"
+        for w in words))
+    npy = work / "wordvec" / "word_vectors.npy"
+    n_rows = convert_cli.main(convert_cli.build_parser().parse_args([
+        "wordvec", "--vocab", str(vocab_path), "--vectors", str(vec),
+        "--out", str(npy)]))
+    weights = np.load(npy)
+    gen = gen_mod.GestureTransformer(n_words=n_rows, fused_attention=True,
+                                     device=DEVICE)
+    gen_mod.set_pretrained_embedding(gen, weights)
+    installed = gen.text_encoder.embedding.weight
+    if not torch.equal(installed.cpu(), torch.from_numpy(weights)) or \
+            installed.device.type != torch.device(DEVICE).type:
+        raise SystemExit("11c: the embedding does not equal the .npy")
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    reset_counts()
+    with torch.no_grad():
+        out = gen(torch.randn(BATCH, 128, 124, generator=g, device=DEVICE),
+                  torch.randint(0, n_rows, (BATCH, 60), generator=g,
+                                device=DEVICE),
+                  torch.randn(BATCH, 10, 282, generator=g, device=DEVICE))
+        torch.cuda.synchronize()
+    n_attn = FA.launches
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    if not finite or tuple(out[0].shape) != (BATCH, 60, 282) or n_attn != 6:
+        raise SystemExit(f"11c: forward finite {finite}, poses "
+                         f"{tuple(out[0].shape)}, attention launches "
+                         f"{n_attn}")
+    counts["fused_attention"] += n_attn
+    del gen, out
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "wordvec")
+    log(f"  [{card}] ({n_rows}, 300) vectors installed on the card, equal "
+        f"to the .npy; forward at batch {BATCH} finite, poses "
+        f"{(BATCH, 60, 282)}; attention launches {n_attn}")
+    return {"beat_v1": {"card": on_card, "host": on_host, "abs_diff": diff,
+                        "card_s": card_s, "host_s": host_s},
+            "wordvec_rows": n_rows}
+
+
+def phase_migrate(card, work: Path, counts, store):
+    t0 = time.perf_counter()
+    out = {"clips": phase_migrate_clips(card, work, counts),
+           "windows": phase_migrate_windows(card, work, counts,
+                                            store["eval"]),
+           "extras": phase_migrate_extras(card, work, counts)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  [{card}] phase 11 wall {out['wall_s']:.1f} s")
+    return out
+
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
@@ -2329,6 +2701,7 @@ def main(argv) -> int:
         store = phase_store(card, work, counts, evals["fast"], train,
                             args.profile)
         dp = phase_dp(card, work, counts, evals)
+        migrate = phase_migrate(card, work, counts, store)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -2337,7 +2710,7 @@ def main(argv) -> int:
 
     detail = {"card": card, "serving": serving, "eval": evals,
               "train": train, "aux": aux, "classifier": kfold, "store": store,
-              "data_parallel": dp,
+              "data_parallel": dp, "migration": migrate,
               "se_stage": se_detail, "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     keys = ("ms_per_step", "samples_per_s", "peak_bytes", "wall_s")
@@ -2350,7 +2723,11 @@ def main(argv) -> int:
         "store": {"preprocess_wall_s": store["preprocess"]["wall_s"],
                   "eval_wall_s": store["eval"]["timings"]["wall_s"],
                   "eval_data_wait_s": store["eval"]["timings"]["data_wait_s"],
-                  "gan_ms_per_step": store["train"]["ms_per_step"]}}))
+                  "gan_ms_per_step": store["train"]["ms_per_step"]},
+        "migration": {"wall_s": migrate["wall_s"],
+                      "clips_convert_s": migrate["clips"]["convert_s"],
+                      "windows_convert_s": migrate["windows"]["convert_s"],
+                      "eval_wall_s": migrate["windows"]["eval_wall_s"]}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ stay numpy. On the CPU the arrays become tensors without a copy.
 `float_dtype` (the trainer's --cast_inputs: torch.bfloat16) casts every
 float32 array on the producer thread, before the copy, which halves the
 bytes moved. `place_batches` is the synchronous form (`--prefetch 0`).
+`store_batches` yields numpy batches straight off a GestureStore.
 
 Under data parallelism each rank assembles and places only its rows of
 every global batch: the datasets' `batches(..., rows=batch_rows(B))` take
@@ -154,3 +155,25 @@ def place_batches(batches: Iterator[dict], device, host_keys=(),
     place = _Placer(device, host_keys, float_dtype)
     for batch in batches:
         yield place.claim(place(batch))
+
+
+def store_batches(store, field_names, batch_size: int, labels_fn=None,
+                  shuffle: bool = True, seed: int = 0,
+                  n_threads: int = 0):
+    """Batches of numpy arrays straight off a GestureStore through its C++
+    batch gather (`GestureStore.batch_field`), for fixed-shape fields. The
+    order is `RandomState(seed)`'s shuffle (or the store's), and the last
+    partial batch is dropped. `labels_fn(record) -> array` adds a derived
+    field as "eid_label" (e.g. one-hot emotion labels from aux_info)."""
+    order = np.arange(len(store))
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    end = len(store) - len(store) % batch_size
+    for i in range(0, end, batch_size):
+        idx = order[i : i + batch_size].astype(np.int64)
+        batch = {name: store.batch_field(idx, name, n_threads)
+                 for name in field_names}
+        if labels_fn is not None:
+            batch["eid_label"] = np.stack(
+                [labels_fn(store[int(j)]) for j in idx])
+        yield batch

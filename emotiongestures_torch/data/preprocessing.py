@@ -8,10 +8,10 @@ records; our flat codec stores each clip as its own record):
    (n_mels, T'), "audio_raw": (n,), "words": [(w, s, e)],
    "aux_info": {"vid", "eid", "start_frame_no", "end_frame_no",
                 "start_time", "end_time"}}
-stored in a GestureStore (the converter from the original LMDB is the
-JAX package's store.convert_lmdb_cache; not ported yet). Output records
-match data/dataset.py, and the JAX package's preprocessor writes the same
-records.
+stored in a GestureStore (data/store.py::convert_clip_lmdb, or
+`convert_data clips`, makes one from the reference's raw clip LMDB). Output
+records match data/dataset.py, and the JAX package's preprocessor writes
+the same records.
 
 Window arithmetic is kept identical: stride subdivision
 floor((K - N)/S) + 1, spectrogram/raw-audio crops aligned by

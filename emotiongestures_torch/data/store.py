@@ -14,8 +14,12 @@ name that carries a hash of the source and the flags. A failed build or
 load raises with the compiler's output: the port never falls back to the
 Python loop without being asked (`native=False`).
 
-The LMDB and pyarrow-0.14 converters of the JAX package's store.py are not
-ported yet (ROADMAP.md queue 1, item 8).
+The converters from the reference's LMDB caches (`convert_lmdb_cache`,
+windows; `convert_clip_lmdb`, raw clips) read the LMDB container with the
+port's pure-Python reader (data/lmdb_reader.py), or with the `lmdb` package
+where it imports, and decode the pyarrow-0.14 payloads with the port's own
+reader (data/arrow014.py): neither `lmdb` nor `pyarrow` is needed. They
+write the JAX package's converters' stores byte for byte.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .arrow014 import deserialize
 from .codec import decode_json_fields, decode_record, encode_record
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -232,3 +237,85 @@ class GestureStore:
         except BufferError:
             pass
         self._file.close()
+
+
+def _iter_lmdb(lmdb_dir: str):
+    """(key, value) pairs from a reference LMDB env, in key order. The
+    `lmdb` package is preferred where it imports, as the reference's own
+    implementation of the format; otherwise the pure-Python reader
+    (data/lmdb_reader.py) parses the file."""
+    try:
+        import lmdb  # optional
+    except ImportError:
+        from .lmdb_reader import iter_entries
+
+        yield from iter_entries(lmdb_dir)
+        return
+    env = lmdb.open(str(lmdb_dir), readonly=True, lock=False)
+    try:
+        with env.begin() as txn:
+            for key, value in txn.cursor():
+                yield bytes(key), bytes(value)
+    finally:
+        env.close()
+
+
+def window_record_from_serialized(buf) -> dict:
+    """One pyarrow-0.14-serialized cache value -> GestureStore record, for
+    both reference layouts:
+      BEAT 5-tuple (word_seq, pose_seq, audio, spectrogram, aux_info):
+        lmdb_loader_BEAT_full.py:171-180
+      TED 6-tuple with vec_seq inserted third: lmdb_data_loader.py:104-113
+    """
+    sample = deserialize(buf)
+    if len(sample) == 5:
+        word_seq, pose_seq, audio, spectrogram, aux_info = sample
+        vec_seq = None
+    elif len(sample) == 6:
+        word_seq, pose_seq, vec_seq, audio, spectrogram, aux_info = sample
+    else:
+        raise ValueError(
+            f"unrecognized cache record layout ({len(sample)} fields)")
+    record = {
+        "word_seq": [list(w) for w in word_seq],
+        "pose_seq": np.asarray(pose_seq),
+        "audio": np.asarray(audio),
+        "spectrogram": np.asarray(spectrogram),
+        "aux_info": dict(aux_info),
+    }
+    if vec_seq is not None:
+        record["vec_seq"] = np.asarray(vec_seq)
+    return record
+
+
+def convert_lmdb_cache(lmdb_dir: str, out_dir: str):
+    """A reference window cache (LMDB of pyarrow-0.14 values) -> a
+    GestureStore at `out_dir`, one record per window in key order."""
+    with GestureStoreWriter(out_dir) as writer:
+        for _, value in _iter_lmdb(lmdb_dir):
+            writer.append(window_record_from_serialized(value))
+
+
+def convert_clip_lmdb(lmdb_dir: str, out_dir: str):
+    """A reference RAW clip LMDB (one video with nested clips per record,
+    data_preprocessor.py:44-75) -> the flat one-record-per-clip store that
+    preprocessing.DataPreprocessor reads."""
+    with GestureStoreWriter(out_dir) as writer:
+        for _, value in _iter_lmdb(lmdb_dir):
+            video = deserialize(value)
+            vid = video["vid"]
+            for clip in video["clips"]:
+                writer.append({
+                    "skeletons_3d": np.asarray(clip["skeletons_3d"]),
+                    "audio_feat": np.asarray(clip["audio_feat"]),
+                    "audio_raw": np.asarray(clip["audio_raw"]),
+                    "words": [list(w) for w in clip["words"]],
+                    "aux_info": {
+                        "vid": vid,
+                        "eid": clip.get("eid", vid),
+                        "start_frame_no": int(clip["start_frame_no"]),
+                        "end_frame_no": int(clip["end_frame_no"]),
+                        "start_time": float(clip["start_time"]),
+                        "end_time": float(clip["end_time"]),
+                    },
+                })

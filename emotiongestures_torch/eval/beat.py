@@ -18,7 +18,8 @@ reference's slicing (Beat_score_v2.py:102-127 — including its quirk of
 windowing only the right-side beats by [t_start, t_end]).
 
 Score: GAHR soft recall exp(-d^2 / 2 sigma^2), averaged over
-3 onset variants x 8 limbs / 24 (Beat_score_v2.py:182-193).
+3 onset variants x 8 limbs / 24 (Beat_score_v2.py:182-193). BeatAlignerV1
+is the older 6-limb variant (model/Beat_score.py:51-191).
 
 A copy of emotiongestures_tpu/eval/beat.py: the host stack and BeatAligner
 as they are (numpy/scipy), and `batched_onset_frontend` in torch on the
@@ -295,3 +296,37 @@ class BeatAligner:
             beats = self.load_pose(pose, t_start, t_end, pose_fps)
             total += self.calculate_align(*onsets, beats, pose_fps)
         return total / len(audio_batch)
+
+
+class BeatAlignerV1(BeatAligner):
+    """Older 6-limb variant (model/Beat_score.py:51-191): slices
+    [18:36]/[150:168], no forearm groups, and the final score uses ONLY
+    RMS-backtracked onsets x the right wrist. `score_batch`, with its
+    `device_frontend`, is BeatAligner's."""
+
+    def load_pose(self, pose: np.ndarray, t_start: int, t_end: int,
+                  pose_fps: int = 15):
+        data = np.concatenate([pose[:, 18:36], pose[:, 150:168]], axis=1)
+        vel = data[1:, :] - data[:-1, :]
+
+        def limb(lo):
+            return np.linalg.norm(vel[:, lo : lo + 6], axis=1)
+
+        v_r_shoulder, v_r_arm, v_r_wrist = limb(0), limb(6), limb(12)
+        v_l_shoulder, v_l_arm, v_l_wrist = limb(18), limb(24), limb(30)
+
+        def beats(v, windowed):
+            vv = v[t_start * pose_fps : t_end * pose_fps] if windowed else v
+            return argrelextrema(vv, np.less, order=self.order)[0]
+
+        return (beats(v_r_arm, True), beats(v_r_shoulder, True),
+                beats(v_r_wrist, True), beats(v_l_arm, False),
+                beats(v_l_shoulder, False), beats(v_l_wrist, False))
+
+    def calculate_align(self, onset_raw, onset_bt, onset_bt_rms,
+                        pose_beats, pose_fps: int = 15) -> float:
+        """(Beat_score.py:188-191): onset_bt_rms vs right wrist only
+        (pose_beats[2] in the load_pose return order)."""
+        audio_bt = frames_to_time(onset_bt_rms)
+        pose_bt = self.motion_frames2time(pose_beats[2], 0, pose_fps)
+        return self.GAHR(pose_bt, audio_bt, self.sigma)

@@ -1,6 +1,6 @@
-"""Scalar metrics of the eval entry point and the meter utility, copied from
-emotiongestures_tpu/eval/metrics.py (host numpy). The BEAT-suite extras
-(L1div, SRGR) wait for the BEAT data stack."""
+"""Scalar metrics of the eval entry point, the BEAT-suite extras (L1div,
+SRGR from model/Beat_score.py:12-49) and the meter utility, copied from
+emotiongestures_tpu/eval/metrics.py (host numpy)."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +23,47 @@ def compute_acc(labels: np.ndarray, logits: np.ndarray) -> float:
     """Top-1 accuracy x100 (test_...py:35-39)."""
     preds = np.argmax(logits, axis=1)
     return float(100.0 * np.mean(preds == labels))
+
+
+class L1div:
+    """(model/Beat_score.py:12-24)."""
+
+    def __init__(self):
+        self.counter = 0
+        self.sum = 0.0
+
+    def run(self, results: np.ndarray):
+        self.counter += results.shape[0]
+        mean = np.mean(results, 0)
+        self.sum += float(np.sum(np.abs(results - mean)))
+
+    def avg(self):
+        return self.sum / self.counter
+
+
+class SRGR:
+    """Semantic-relevant gesture recall (model/Beat_score.py:27-49)."""
+
+    def __init__(self, threshold: float = 0.1, joints: int = 47):
+        self.threshold = threshold
+        self.pose_dims = joints
+        self.counter = 0
+        self.sum = 0.0
+
+    def run(self, results, targets, semantic):
+        results = results.reshape(-1, self.pose_dims, 3)
+        targets = targets.reshape(-1, self.pose_dims, 3)
+        semantic = np.asarray(semantic).reshape(-1)
+        diff = np.sum(np.abs(results - targets), 2)
+        success = np.where(diff < self.threshold, 1.0, 0.0)
+        success = success * semantic[:, None] * (1 / 0.165)
+        rate = np.sum(success) / (success.shape[0] * success.shape[1])
+        self.counter += success.shape[0]
+        self.sum += rate * success.shape[0]
+        return rate
+
+    def avg(self):
+        return self.sum / self.counter
 
 
 class AverageMeter:

@@ -21,6 +21,7 @@ the emotion/semantic features and logits bf16.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -233,3 +234,16 @@ class GestureTransformer(nn.Module):
         poses = self.post_projector(dec_output)
         return (poses, emotion_feature, semantic_feature, emotion_prediction,
                 text_embedding)
+
+
+def set_pretrained_embedding(module: GestureTransformer, weights):
+    """Install fasttext-exported word vectors, an (n_words, 300) matrix
+    such as `convert_data wordvec` writes, as the text encoder's embedding
+    (TextEncoderTCN, Models_memory.py:149-153): fp32, on the module's
+    device, in the same Parameter. Returns the module."""
+    emb = module.text_encoder.embedding
+    w = torch.as_tensor(np.asarray(weights), dtype=torch.float32)
+    with torch.no_grad():
+        emb.weight.data = w.to(emb.weight.device)
+    emb.num_embeddings = w.shape[0]
+    return module

@@ -1,6 +1,7 @@
-"""Boundaries of the port: it stands without JAX and the JAX package, its
-entry points default to the card, and a CPU tensor takes a kernel's plain
-version without counting a launch."""
+"""Boundaries of the port: it stands without JAX and the JAX package (and
+without `flatbuffers`, `lmdb` and `pyarrow`, which the migration path does
+not need), its entry points default to the card, and a CPU tensor takes a
+kernel's plain version without counting a launch."""
 import ast
 import subprocess
 import sys
@@ -12,7 +13,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "emotiongestures_torch"
-FORBIDDEN = ("jax", "flax", "emotiongestures_tpu")
+FORBIDDEN = ("jax", "flax", "emotiongestures_tpu", "flatbuffers", "lmdb",
+             "pyarrow")
 
 
 def _port_sources():
@@ -21,10 +23,12 @@ def _port_sources():
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke, import in a process where
-    jax, flax and emotiongestures_tpu cannot be imported."""
+    jax, flax, emotiongestures_tpu, flatbuffers, lmdb and pyarrow cannot be
+    imported."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'emotiongestures_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'emotiongestures_tpu',\n"
+        "             'flatbuffers', 'lmdb', 'pyarrow'):\n"
         "    sys.modules[name] = None\n"
         "import emotiongestures_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
@@ -39,10 +43,31 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
 
 
+def _guarded_lmdb_imports(tree) -> set:
+    """The `import lmdb` statements in `_iter_lmdb`'s try whose ImportError
+    handler falls back to the pure-Python reader: the one place the `lmdb`
+    package may be imported (where it is installed)."""
+    ok = set()
+    for fn in ast.walk(tree):
+        if not (isinstance(fn, ast.FunctionDef) and fn.name == "_iter_lmdb"):
+            continue
+        for t in ast.walk(fn):
+            if isinstance(t, ast.Try) and any(
+                    isinstance(h.type, ast.Name) and h.type.id == "ImportError"
+                    for h in t.handlers):
+                ok.update(id(n) for n in t.body if isinstance(n, ast.Import)
+                          and [a.name for a in n.names] == ["lmdb"])
+    return ok
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_in_port(path):
+    """No import of jax, flax, emotiongestures_tpu, flatbuffers or pyarrow;
+    `lmdb` only behind data/store.py::_iter_lmdb's guard."""
     tree = ast.parse(path.read_text())
+    guarded = _guarded_lmdb_imports(tree) \
+        if path == PORT / "data" / "store.py" else set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -50,8 +75,18 @@ def test_no_jax_import_in_port(path):
             names = [node.module or ""]
         else:
             continue
+        if id(node) in guarded:
+            continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_lmdb_guard_is_found():
+    """The guard above exempts exactly the one import in _iter_lmdb."""
+    tree = ast.parse((PORT / "data" / "store.py").read_text())
+    assert len(_guarded_lmdb_imports(tree)) == 1
+    bare = ast.parse("import lmdb\ndef _iter_lmdb():\n    import lmdb\n")
+    assert not _guarded_lmdb_imports(bare)
 
 
 def test_entry_points_default_to_cuda():
@@ -63,7 +98,10 @@ def test_entry_points_default_to_cuda():
     from emotiongestures_torch.cli import (
         test_emotion_gesture_diversity_iterative as eval_cli,
     )
-    from emotiongestures_torch.eval.beat import batched_onset_frontend
+    from emotiongestures_torch.eval.beat import (
+        BeatAlignerV1,
+        batched_onset_frontend,
+    )
     from emotiongestures_torch.models.cvae import EmotionCVAEv3
     from emotiongestures_torch.models.fgd_ae import FGDAutoEncoder
     from emotiongestures_torch.models.skeleton_classifier import (
@@ -143,6 +181,10 @@ def test_entry_points_default_to_cuda():
         lambda: kfold_cli.main(kfold_cli.build_parser().parse_args(
             ["--synthetic", "8", "--batch_size", "8", "--num_devices",
              "2"])),
+        # BEAT's 6-limb aligner on the card's onset frontend
+        lambda: BeatAlignerV1().score_batch(
+            np.zeros((1, 64000), np.float32), np.zeros((1, 60, 282)),
+            device_frontend=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

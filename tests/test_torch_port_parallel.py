@@ -7,11 +7,12 @@ one layer, global batch 16).
     d_concat_batch; dropout on), the FGD, skeleton, CVAE v3 and classifier
     steps, and the eval pipeline (`eval_batch` with injected and with drawn
     CVAE noise): the ranks reproduce one process and stay replicas;
+  * train-mode TMMemory alone (pose 282), its output against one process;
   * planted faults, each of which the parity check must fail: BatchNorm on
     per-rank statistics, a dropout mask shared across ranks (both caught
     by the GAN step's check) and TMMemory coupling per rank (caught by the
-    eval pipeline's; the train step's check at d_model 64 does not see it,
-    since TMMemory's scores start near zero);
+    eval pipeline's and by train-mode TMMemory's; the train step's check at
+    d_model 64 does not see it, since TMMemory's scores start near zero);
   * the 2-rank GAN step against the JAX package's single-device step on
     the same weights and batch, dropout off on both sides: JAX's data
     parallelism equals its single device (tests/test_parallel.py), so the
@@ -21,7 +22,8 @@ one layer, global batch 16).
 
 The heavier runs are shared by several tests and made once per pytest run:
 under pytest-xdist by whichever worker comes first, the others read its
-pickled verdicts (a lock file in the run's temp root).
+pickled verdicts (a lock file in the run's temp root). Each computes its
+one-process reference while its two ranks run.
 """
 import fcntl
 import os
@@ -75,10 +77,10 @@ def gan_dfirst(tmp_path_factory):
     """d_first, paired_label, dropout on: one process, two ranks, and two
     ranks with a fault planted."""
     def compute():
-        ref = P.one_process([("d_first", "gan", {})])
-        got = P.two_ranks([("d_first", "gan", {}),
-                           ("bn", "gan", {"fault": "bn"}),
-                           ("mask", "gan", {"fault": "mask"})])
+        ref, got = P.one_and_two([("d_first", "gan", {})],
+                                 [("d_first", "gan", {}),
+                                  ("bn", "gan", {"fault": "bn"}),
+                                  ("mask", "gan", {"fault": "mask"})])
         return verdicts(ref, got, [
             (n, "d_first", P.GAN_KEYS, GAN_STATES)
             for n in ("d_first", "bn", "mask")])
@@ -94,7 +96,7 @@ VARIANTS = {"g_first-emo_sem": {"update_order": "g_first",
 def gan_variants(tmp_path_factory):
     def compute():
         cases = [(n, "gan", {"cfg": c}) for n, c in VARIANTS.items()]
-        ref, got = P.one_process(cases), P.two_ranks(cases)
+        ref, got = P.one_and_two(cases, cases)
         return verdicts(ref, got, [(n, n, P.GAN_KEYS, GAN_STATES)
                                    for n in VARIANTS])
     return shared(tmp_path_factory, "gan_variants", compute)
@@ -111,7 +113,8 @@ def gan_bf16_grads(tmp_path_factory):
     parameters of one process and of rank 0."""
     def compute():
         cases = [("bf16", "gan", {"cfg": BF16_GRADS, "steps": 1})]
-        ref, got = P.one_process(cases)["bf16"], P.two_ranks(cases)
+        ref, got = P.one_and_two(cases, cases)
+        ref = ref["bf16"]
         gen = max(float(np.abs(got[0]["bf16"]["gen"][k].astype(np.float64)
                                - v).max()) for k, v in ref["gen"].items()
                   if not k.endswith(("running_mean", "running_var")))
@@ -125,19 +128,22 @@ SMALL = {"fgd": ("loss",), "skeleton": ("loss", "acc"),
 
 @pytest.fixture(scope="module")
 def small(tmp_path_factory):
-    """The small trainers, the eval pipeline (also with TMMemory per rank),
-    the collectives and the masks."""
+    """The small trainers, the eval pipeline and train-mode TMMemory (each
+    also with TMMemory per rank), the collectives and the masks."""
     def compute():
-        cases = [(n, n, {}) for n in SMALL] + [("eval", "eval", {})]
-        ref = P.one_process(cases + [("masks", "masks", {})])
-        got = P.two_ranks(cases + [
+        cases = [(n, n, {}) for n in SMALL] + [("eval", "eval", {}),
+                                               ("tmmemory", "tmmemory", {})]
+        ref, got = P.one_and_two(cases + [("masks", "masks", {})], cases + [
             ("eval_tm", "eval", {"fault": "tm"}),
+            ("tmmemory_tm", "tmmemory", {"fault": "tm"}),
             ("collectives", "collectives", {}), ("masks", "masks", {})])
         out = verdicts(ref, got, [(n, n, keys, ("model",))
                                   for n, keys in SMALL.items()])
-        for name in ("eval", "eval_tm"):
+        for name, ref_name in (("eval", "eval"), ("eval_tm", "eval"),
+                               ("tmmemory", "tmmemory"),
+                               ("tmmemory_tm", "tmmemory")):
             out[name] = {k: (np.concatenate([g[name][k] for g in got]), v)
-                         for k, v in ref["eval"].items()}
+                         for k, v in ref[ref_name].items()}
         out["classifier_eval"] = (
             ref["classifier"]["eval_acc"],
             [g["classifier"]["eval_acc"] for g in got],
@@ -210,6 +216,22 @@ def test_planted_tmmemory_fault_fails_the_eval_parity_check(small):
             np.testing.assert_allclose(got, want, err_msg=key, **EVAL_TOL)
 
 
+def test_tmmemory_train_two_ranks_match_one_process(small):
+    """TMMemory in train mode, directly: the ranks' rows of its output
+    against one process on the global batch (the GAN step's check cannot
+    resolve its coupling at d_model 64)."""
+    got, want = small["tmmemory"]["out"]
+    assert got.shape == (P.B, 50, 282)
+    np.testing.assert_allclose(got, want, **EVAL_TOL)
+
+
+def test_planted_tmmemory_fault_fails_the_train_check(small):
+    """Coupling each rank's rows only: the check above must fail."""
+    got, want = small["tmmemory_tm"]["out"]
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, want, **EVAL_TOL)
+
+
 def test_dropout_masks_are_the_global_draw(small):
     """Each rank's masks are its rows of the one-process draw (blocks 2:
     its rows of each of the two batches), so no two ranks share one."""
@@ -248,14 +270,18 @@ def test_gan_step_two_ranks_match_jax(monkeypatch):
     batch: losses rtol 1e-4, parameters atol 2.02 * lr, running statistics
     rtol 1e-4 atol 1e-6 (test_torch_port_train_dfirst.py's)."""
     cfg = tgan.GANConfig(**P.SMALL_GAN)
-    got = mesh.launch(P.run_cases, 2, [("jax", "gan", {
-        "steps": 1, "dropout": False})], device="cpu", threads=P.THREADS,
-        timeout=P.TIMEOUT)
     T.patch_flax_dropout(monkeypatch)
-    (gs, _), (jg, jd), jcfg = T.states(cfg)
-    batch = P.gan_batch()
-    jg, jd, jm = T.jax_step(jcfg)(jg, jd, T.jax_batch(batch),
-                                  jax.random.PRNGKey(0))
+
+    def jax_side():  # while the ranks run
+        (gs, _), (jg, jd), jcfg = T.states(cfg)
+        jg, jd, jm = T.jax_step(jcfg)(jg, jd, T.jax_batch(P.gan_batch()),
+                                      jax.random.PRNGKey(0))
+        return gs, jg, jd, jm
+
+    got, (gs, jg, jd, jm) = P.alongside(
+        lambda: P.two_ranks([("jax", "gan", {"steps": 1,
+                                             "dropout": False})]),
+        jax_side)
     res = got[0]["jax"]
     T.assert_metrics(res["metrics"][0], {k: float(v) for k, v in jm.items()},
                      rtol=1e-4)

@@ -10,9 +10,11 @@ checkpoints (a second writer would meet the checkpoint directory's lock
 and fail the run).
 
 The ranks' torch runs on one thread each (OMP_NUM_THREADS, inherited by
-the spawned processes): the suite's workers share the cores. Each test
+the spawned processes): the suite's workers share the cores. Where a test
+starts ranks or processes that need nothing from its one-process run, they
+run while that run computes. Each test
 removes its run directories when it ends (the K-fold checkpoint of the
-32 x 32 EmotionNet is ~380 MB; the suite's disk is shared).
+16 x 16 EmotionNet is ~190 MB; the suite's disk is shared).
 """
 import json
 import os
@@ -25,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch_port_parallel_common as P
-from torch_port_parallel_common import TinySpectrograms
+from torch_port_parallel_common import KfoldSpectrograms
 
 from emotiongestures_torch.cli import (
     test_emotion_gesture_diversity_iterative as eval_cli,
@@ -100,11 +102,7 @@ def test_gan_trainer_two_ranks_match_one_process(tmp_path):
     """One step on a global batch of 8: --num_devices 2, and two processes
     started with the multi-host flags, against one process."""
     flags = ["--synthetic", "8", "--batch_size", "8", "--total_epoch", "1"]
-    _, _, one = _gan(tmp_path / "one", *flags)
-    _, _, two = _gan(tmp_path / "two", *flags, "--num_devices", "2")
-    assert one["steps"] == two["steps"] == 1
-    _close(two["metrics"], one["metrics"], GAN_KEYS)
-
+    # the two multi-host processes run while this one computes the others
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     procs = [subprocess.Popen(
@@ -115,6 +113,10 @@ def test_gan_trainer_two_ranks_match_one_process(tmp_path):
         text=True) for i in range(2)]
     outs = []
     try:
+        _, _, one = _gan(tmp_path / "one", *flags)
+        _, _, two = _gan(tmp_path / "two", *flags, "--num_devices", "2")
+        assert one["steps"] == two["steps"] == 1
+        _close(two["metrics"], one["metrics"], GAN_KEYS)
         for p in procs:
             out, err = p.communicate(timeout=P.TIMEOUT)
             assert p.returncode == 0, err[-3000:]
@@ -152,13 +154,14 @@ def test_kfold_two_ranks_match_one_process(tmp_path, monkeypatch):
     """One fold of 4 steps; the two ranks also validate and checkpoint at
     step 4 (the validation changes no state). The ranks run the CLI's main
     in a group `launch` started (the module's dataset swapped for
-    TinySpectrograms in each rank); main joins it."""
-    monkeypatch.setattr(kfold, "SyntheticGestureDataset", TinySpectrograms)
-    one = kfold.main(kfold.build_parser().parse_args(
-        KFOLD + ["--model_save_path", str(tmp_path / "one")]))
-    ranks = mesh.launch(P.kfold_rank, 2, KFOLD + [
-        "--model_save_path", str(tmp_path / "two"), "--num_devices", "2",
-        "--eval_every", "4"], device="cpu", threads=1, timeout=P.TIMEOUT)
+    KfoldSpectrograms (16 x 16) in each rank); main joins it."""
+    monkeypatch.setattr(kfold, "SyntheticGestureDataset", KfoldSpectrograms)
+    ranks, one = P.alongside(
+        lambda: mesh.launch(P.kfold_rank, 2, KFOLD + [
+            "--model_save_path", str(tmp_path / "two"), "--num_devices", "2",
+            "--eval_every", "4"], device="cpu", threads=1, timeout=P.TIMEOUT),
+        lambda: kfold.main(kfold.build_parser().parse_args(
+            KFOLD + ["--model_save_path", str(tmp_path / "one")])))
     for got in ranks:
         (g,) = got
         assert g["fold"] == 0 and g["step"] == one[0]["state"].step == 4

@@ -7,6 +7,7 @@ one process on the whole batch, inside one each rank takes its rows
 (`process_batch_slice`). It returns numpy only, so its result pickles back
 from a rank. This module imports no JAX: the ranks import it.
 """
+import concurrent.futures
 import contextlib
 
 import numpy as np
@@ -207,6 +208,27 @@ def eval_case(fault=None):
             for n, t in zip(names, out[:4])}
 
 
+def tmmemory_case(fault=None):
+    """TMMemory alone in train mode (pose 282, chunk 10, dropout on with
+    the global batch's masks) on a global batch of unit-scale seeded seed
+    and extrapolated poses: this rank's rows of its output. Here TMMemory's
+    scores are far from zero, so coupling each rank's rows only (fault
+    "tm") moves the output by ~2.7 of a largest |output| of ~7.5: ~3000
+    times the eval tolerance (atol 2e-5, rtol 2e-4), read in one process
+    on the CPU."""
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        module = generator.TMMemory(10, 282).train()
+    distributed.broadcast_module(module)
+    r = np.random.RandomState(8)
+    b = local({"initial": r.randn(B, 10, 282).astype(np.float32),
+               "pred": r.randn(B, 50, 282).astype(np.float32)})
+    with planted(fault), layers.dropout_generator(
+            module, torch.Generator().manual_seed(6)):
+        out = module(b["initial"], b["pred"])
+    return {"out": out.detach().numpy()}
+
+
 def collectives_case():
     """The differentiable collectives on rank-dependent inputs: values and
     gradients of sum(w * all_reduce_sum(x)) and sum(w * all_gather(x)),
@@ -246,7 +268,8 @@ def masks_case(device="cpu"):
 
 CASES = {"gan": gan_case, "collectives": collectives_case,
          "masks": masks_case, "fgd": fgd_case, "skeleton": skeleton_case,
-         "cvae": cvae_case, "classifier": classifier_case, "eval": eval_case}
+         "cvae": cvae_case, "classifier": classifier_case, "eval": eval_case,
+         "tmmemory": tmmemory_case}
 
 
 def run_cases(cases):
@@ -270,6 +293,24 @@ def one_process(cases):
         torch.set_num_threads(before)
 
 
+def alongside(background, foreground):
+    """`background()` in a thread (a `launch` of ranks, which waits on its
+    processes) while `foreground()` runs here: (background's result,
+    foreground's). An error in either raises here."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(background)
+        front = foreground()
+        return pending.result(), front
+
+
+def one_and_two(one_cases, two_cases):
+    """(one_process(one_cases), two_ranks(two_cases)), the ranks running
+    while this process computes its reference."""
+    got, ref = alongside(lambda: two_ranks(two_cases),
+                         lambda: one_process(one_cases))
+    return ref, got
+
+
 class TinySpectrograms:
     """An in-memory stand-in for the synthetic set in the classifier's
     tests: `shape` spectrograms ((32, 32): EmotionNet's fc0 is then
@@ -288,13 +329,22 @@ class TinySpectrograms:
         return self.items[i]
 
 
+class KfoldSpectrograms(TinySpectrograms):
+    """TinySpectrograms at 16 x 16 for the data-parallel K-fold run:
+    EmotionNet's fc0 is then 1024 x 4096, and a step and a checkpoint
+    about half those at 32 x 32."""
+
+    def __init__(self, n_samples, seed=0, **_):
+        super().__init__(n_samples, seed, shape=(16, 16))
+
+
 def kfold_rank(argv):
-    """The K-fold CLI's main on TinySpectrograms in this process (a rank of
+    """The K-fold CLI's main on KfoldSpectrograms in this process (a rank of
     a group its caller started): each record's fold, test accuracy,
     confusion matrix and step."""
     from emotiongestures_torch.cli import train_audio_classifier_K_fold as kf
 
-    kf.SyntheticGestureDataset = TinySpectrograms
+    kf.SyntheticGestureDataset = KfoldSpectrograms
     return [{"fold": r["fold"], "test_acc": r["test_acc"],
              "confusion": r["confusion"], "step": r["state"].step}
             for r in kf.main(kf.build_parser().parse_args(argv))]
