@@ -133,6 +133,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      rows equal the .npy and a forward at batch 1024 is finite (6
      attention launches). Each conversion's wall, records/s and MB/s, the
      LMDB sizes and depths, and the phase's wall.
+ 12. the model zoo, in the work directory of phases 6-11: 12a each of the
+     generator variants `base`, `spatial_memory` and `padding_initial`
+     served as phase 4 (EmotionCVAEv3.sample, then GestureTransformer(
+     variant=..., fused_attention=True) at full width, batch 1024, fp32 and
+     bf16, weights seeded in torch): exactly 6 attention launches per
+     forward, the poses within POSE_TOL of the plain attention path, 2
+     fp32 rows on the card against the CPU, ms per forward beside phase
+     4's `memory`; 12b the GAN trainer's `main` once per `--variant`
+     (`--preset fast`, batch 128, 512 synthetic samples, one epoch: finite
+     losses, no kernel launch, ms per step) and one fp32 d_first
+     train_step of `base` and of `padding_initial` at 6c's width on the
+     card and on the CPU under 6c's tolerances, SPMemoryV2's running
+     statistics among the buffers; 12c `train_auxiliary --model cvae
+     --cvae_version 1`, then 2, on phase 6's fp32 generator (2 epochs,
+     then `--resume` to step 12), one step of each on the card and on the
+     CPU with the noise injected under 7d's tolerances, and HandCVAE's
+     forward and prior sample card vs CPU (ZOO_REL); 12d every baseline
+     (seq2seq, speech2gesture, trimodal, hierarchy with its speaker
+     blend, the embedding net, the motion autoencoder), their
+     discriminators and the legacy factories at the JAX constructors'
+     default widths, batch 64, fp32 with TF32 off, on the card and on the
+     CPU (ZOO_REL), ms per forward, no kernel launch; then 8 batches of 64
+     windows into EmbeddingSpaceEvaluator at pose_dim 27 and 126 on the
+     card and on the CPU: Fréchet distance, feature distance and
+     diversity within ZOO_EVAL_REL. Each part's wall and the phase's.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -191,7 +216,13 @@ from emotiongestures_torch.data.synthetic import (  # noqa: E402
 )
 from emotiongestures_torch.data.vocab import Vocab, build_vocab  # noqa: E402
 from emotiongestures_torch.eval.beat import BeatAlignerV1  # noqa: E402
+from emotiongestures_torch.eval import (  # noqa: E402
+    embedding_space_evaluator as zoo_eval,
+)
+from emotiongestures_torch.models import baselines as bl  # noqa: E402
+from emotiongestures_torch.models import cvae as cvae_models  # noqa: E402
 from emotiongestures_torch.models import generator as gen_mod  # noqa: E402
+from emotiongestures_torch.models import legacy_submodules as legacy  # noqa: E402,E501
 from emotiongestures_torch.nn import transformer as T  # noqa: E402
 from emotiongestures_torch.nn.resnet_se import SEBasicBlock  # noqa: E402
 from emotiongestures_torch.serving import (  # noqa: E402
@@ -1109,8 +1140,8 @@ def phase_train(card, work: Path, profiling=False):
     return results
 
 
-def step_states(device):
-    cfg = gan.GANConfig(**STEP_CFG)
+def step_states(device, variant="memory"):
+    cfg = gan.GANConfig(**STEP_CFG, variant=variant)
     gs, ds = gan.create_states(cfg, 0, device=device)
     for module in (gs.module, ds.module):
         for d in module.modules():
@@ -1119,8 +1150,8 @@ def step_states(device):
     return cfg, gs, ds
 
 
-def one_step(device, batch):
-    cfg, gs, ds = step_states(device)
+def one_step(device, batch, variant="memory"):
+    cfg, gs, ds = step_states(device, variant)
     gs, ds, m = gan.train_step(
         gs, ds, {k: v.to(device) for k, v in batch.items()}, 1, cfg)
     return cfg, gs, ds, {k: float(v) for k, v in m.items()}
@@ -1251,11 +1282,11 @@ def log_trainer(card, name, res, extra=""):
         f"{res['wall_s']:.1f} s{extra}")
 
 
-def aux_once(model, work: Path, epochs, resume, extra=()):
+def aux_once(model, work: Path, epochs, resume, extra=(), save="aux"):
     args = aux_cli.build_parser().parse_args([
         "--model", model, "--synthetic", str(TRAIN_SAMPLES), "--batch_size",
         str(TRAIN_BATCH), "--total_epoch", str(epochs), "--device", DEVICE,
-        "--save_every", "1000", "--model_save_path", str(work / "aux"),
+        "--save_every", "1000", "--model_save_path", str(work / save),
         *extra, *(["--resume"] if resume else [])])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2652,6 +2683,357 @@ def phase_migrate(card, work: Path, counts, store):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_VARIANTS = ("base", "spatial_memory", "padding_initial")
+ZOO_STEP_VARIANTS = ("base", "padding_initial")
+ZOO_B = 64
+# 12c-12d, card against CPU in fp32 with TF32 off: every output within
+# 1e-4 of its largest entry (cuDNN / cuBLAS against the CPU's convolutions
+# and GEMMs sum in other orders; the GRUs' recurrences and seq2seq's
+# 59-step decode feed those differences back); HandCVAE the same
+ZOO_REL = 1e-4
+# 12d, the evaluator's statistics card against CPU: a covariance's sqrtm
+# over 512 latents of 32 or 128 dims that agree to ~1e-6
+ZOO_EVAL_REL = 1e-3
+
+
+def check_rel(name, got, ref, rel=ZOO_REL) -> float:
+    """max |got - ref| / max |ref| <= rel, logged; the share."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    share = float((got - ref).abs().max() / ref.abs().max().clamp(
+        min=1e-30))
+    ok = share <= rel and got.shape == ref.shape
+    log(f"  {name}: max_abs_err / max|ref| {share:.3e} (at most {rel}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the card disagrees with the CPU")
+    return share
+
+
+def phase_zoo_serving(gen, card, counts, serving):
+    """12a: each variant's serving forward at phase 4's width."""
+    memory_ms = {r["precision"]: r["cvae_generator_ms"] for r in serving}
+    waves, y, text, prior, noise = requests(gen, BATCH,
+                                            torch.device(DEVICE))
+    out = {}
+    for variant in ZOO_VARIANTS:
+        for precision in ("float32", "bfloat16"):
+            server = GestureServer(fused_attention=True, precision=precision,
+                                   device=DEVICE, seed=0, variant=variant)
+            spec = server.spectrogram(waves)
+            server.forward_spec(spec, y, text, prior, noise=noise)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            poses = server.forward_spec(spec, y, text, prior,
+                                        noise=noise)[0]
+            torch.cuda.synchronize()
+            launches = (FA.launches, FM.launches, FS.launches)
+            if launches != (6, 0, 0):
+                raise SystemExit(f"{variant} {precision}: launches "
+                                 f"(attention, mel, SE stage) {launches}, "
+                                 "want (6, 0, 0)")
+            counts["fused_attention"] += FA.launches
+            if poses.shape != (BATCH, 60, 282) or \
+                    not torch.isfinite(poses).all():
+                raise SystemExit(f"{variant} {precision}: bad poses")
+            ms = cuda_ms(lambda: server.forward_spec(spec, y, text, prior,
+                                                     noise=noise), iters=3)
+            set_fused_attention(server.gen, False)
+            plain = server.forward_spec(spec, y, text, prior, noise=noise)[0]
+            set_fused_attention(server.gen, True)
+            err = check_close(f"{variant} {precision} poses fused vs plain "
+                              "path", poses, plain, **POSE_TOL[precision])
+            log(f"  [{card}] {variant} {precision}: {ms:.1f} ms per "
+                f"CVAE+generator forward of {BATCH} (memory, phase 4: "
+                f"{memory_ms[precision]:.1f} ms); attention launches 6")
+            res = {"ms_per_forward": ms, "memory_ms": memory_ms[precision],
+                   "attention_launches": 6, "pose_err": err}
+            if precision == "float32":
+                cpu = GestureServer(fused_attention=True, device="cpu",
+                                    seed=1, variant=variant)
+                cpu.gen.load_state_dict({k: v.cpu() for k, v in
+                                         server.gen.state_dict().items()})
+                cpu.vae.load_state_dict({k: v.cpu() for k, v in
+                                         server.vae.state_dict().items()})
+                small = [t[:2] for t in (spec, y, text, prior, noise)]
+                on_card = server.forward_spec(*small[:4],
+                                              noise=small[4])[0]
+                on_cpu = cpu.forward_spec(*[t.cpu() for t in small[:4]],
+                                          noise=small[4].cpu())[0]
+                res["card_vs_cpu"] = check_close(
+                    f"{variant} 2 rows, card vs CPU", on_card.cpu(), on_cpu,
+                    rtol=2e-3, atol=5e-4)
+            out[f"{variant}_{precision}"] = res
+            del server
+    return out
+
+
+def phase_zoo_train(card, work: Path):
+    """12b: the GAN trainer's main per --variant (--preset fast), and one
+    fp32 d_first step of `base` and `padding_initial` card vs CPU."""
+    out = {}
+    for variant in ZOO_VARIANTS:
+        gen, disc, summary = train_once(
+            f"variant {variant}", ["--preset", "fast", "--variant", variant],
+            work / f"gan_{variant}", 1, False)
+        if (gen.step, disc.step) != (EPOCH_STEPS, EPOCH_STEPS) or \
+                gen.module.variant != variant:
+            raise SystemExit(f"train {variant}: steps {gen.step}, "
+                             f"{disc.step}, variant {gen.module.variant}")
+        del gen, disc
+        shutil.rmtree(work / f"gan_{variant}")
+        ms = float(np.mean(summary["step_ms"][1:]))
+        log(f"  [{card}] train --variant {variant} --preset fast: {ms:.2f} "
+            f"ms per step (CUDA events, steps 2-{EPOCH_STEPS}; all: "
+            f"{', '.join(f'{t:.2f}' for t in summary['step_ms'])}); losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        summary["metrics"].items())
+            + "; no kernel launch")
+        out[variant] = {"ms_per_step": ms, "step_ms": summary["step_ms"],
+                        "losses": summary["metrics"]}
+    batch = train_batch(STEP_B)
+    for variant in ZOO_STEP_VARIANTS:
+        card_step = one_step(DEVICE, batch, variant)
+        cpu_step = one_step("cpu", batch, variant)
+        worst, bad = step_errors(card_step, cpu_step)
+        sp = [n for n, _ in card_step[1].module.named_buffers()
+              if ".spatial_memory.bn" in n]
+        log(f"  {variant} d_first step, d_model 128, card vs CPU "
+            f"({len(sp)} SPMemoryV2 running statistics among the buffers): "
+            "max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       worst.items())
+            + f" ({'ok' if not bad else 'FAIL: ' + ', '.join(bad[:5])})")
+        if bad:
+            raise SystemExit(f"{variant} train step: the card disagrees "
+                             "with the CPU")
+        out[f"{variant}_card_vs_cpu"] = worst
+    return out
+
+
+def cvae_version_step(version, device, inputs):
+    state = cvae_train.create_state(0, version=version, device=device)
+    no_dropout(state.module)
+    batch = {k: v.to(device) for k, v in inputs.items()}
+    state, m = cvae_train.train_step(state, batch["features"],
+                                     batch["eid_label"], 1,
+                                     noise=batch["noise"])
+    return state, {k: float(v) for k, v in m.items()}
+
+
+def phase_zoo_cvae(card, work: Path):
+    """12c: --cvae_version 1 and 2 on phase 6's fp32 generator, 2 epochs
+    then --resume to step 12; one step of each card vs CPU; HandCVAE."""
+    out = {}
+    gan_dir = work / "gan_fp32"
+    g = torch.Generator().manual_seed(12)
+    inputs = {"features": torch.randn(AUX_STEP_B, 60, 512, generator=g),
+              "eid_label": torch.nn.functional.one_hot(
+                  torch.arange(AUX_STEP_B) % 8, 8).float(),
+              "noise": torch.randn(AUX_STEP_B, 32, generator=g)}
+    for version in (1, 2):
+        extra = ["--generator_checkpoint", str(gan_dir), "--cvae_version",
+                 str(version)]
+        save = f"aux_cvae_v{version}"
+        state, first = aux_once("cvae", work, 2, False, extra, save)
+        if state.step != 2 * EPOCH_STEPS:
+            raise SystemExit(f"cvae v{version}: step {state.step}")
+        state, resumed = aux_once("cvae", work, 1, True, extra, save)
+        if state.step != 3 * EPOCH_STEPS or \
+                type(state.module).__name__ != f"EmotionCVAEv{version}":
+            raise SystemExit(f"cvae v{version}: step {state.step} after "
+                             f"--resume, {type(state.module).__name__}")
+        del state
+        res = trainer_numbers(first["step_ms"], TRAIN_BATCH,
+                              max(first["peak_bytes"],
+                                  resumed["peak_bytes"]), first["wall_s"])
+        res["metrics"] = resumed["metrics"]
+        log_trainer(card, f"cvae v{version}", res,
+                    "; steps 8 -> 12; last metrics " + ", ".join(
+                        f"{k} {v:.5f}" for k, v in res["metrics"].items()))
+        (s0, m0), (s1, m1) = (cvae_version_step(version, d, inputs)
+                              for d in ("cpu", DEVICE))
+        worst, bad = state_errors({"": (s1, s0)}, m1, m0, 2e-4)
+        log(f"  cvae v{version} step, card vs CPU: max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items())
+            + f" ({'ok' if not bad else 'FAIL: ' + ', '.join(bad[:5])})")
+        if bad:
+            raise SystemExit(f"cvae v{version} step: the card disagrees "
+                             "with the CPU")
+        res["card_vs_cpu"] = worst
+        out[f"v{version}"] = res
+    torch.manual_seed(12)
+    hand = cvae_models.HandCVAE(device=DEVICE)
+    hand_cpu = cvae_models.HandCVAE(device="cpu")
+    hand_cpu.load_state_dict({k: v.cpu() for k, v in
+                              hand.state_dict().items()})
+    x, y, z = (torch.randn(ZOO_B, *s, generator=g) for s in
+               ((90,), (90,), (32,)))
+    with torch.no_grad():
+        got = hand(x.to(DEVICE), y.to(DEVICE), noise=z.to(DEVICE))[0]
+        want = hand_cpu(x, y, noise=z)[0]
+        out["hand"] = check_rel("HandCVAE forward", got, want)
+        check_rel("HandCVAE sample", hand.sample(y.to(DEVICE),
+                                                 noise=z.to(DEVICE)),
+                  hand_cpu.sample(y, noise=z))
+    return out
+
+
+def zoo_nets(g):
+    """12d's nets at the JAX constructors' default widths and their batch-64
+    inputs: name -> (build(device), inputs, output to compare)."""
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    words = lambda *s: torch.randint(1, 64, s, generator=g)  # noqa: E731
+    B = ZOO_B
+    return {
+        "seq2seq": (lambda d: bl.Seq2SeqNet(n_words=64, device=d),
+                    (words(B, 34), torch.full((B,), 34), r(B, 60, 282))),
+        "s2g_generator": (lambda d: bl.S2GGenerator(device=d),
+                          (r(B, 128, 70), r(B, 4, 282))),
+        "s2g_discriminator": (lambda d: bl.S2GDiscriminator(device=d),
+                              (r(B, 34, 282),)),
+        "trimodal_generator": (lambda d: bl.PoseGenerator(n_words=64,
+                                                          device=d),
+                               (r(B, 60, 283), words(B, 60),
+                                0.1 * r(B, 64000))),
+        "trimodal_discriminator": (lambda d: bl.TrimodalDiscriminator(
+            device=d), (r(B, 60, 282),)),
+        "conv_discriminator": (lambda d: bl.ConvDiscriminator(device=d),
+                               (r(B, 60, 282),)),
+        "hierarchy_wav_encoder": (lambda d: bl.HierarchicalWavEncoder(
+            n_speakers=8, device=d), (r(B, 128, 124),
+                                      torch.arange(B) % 8)),
+        "hierarchy_generator": (lambda d: bl.HierarchicalPoseGenerator(
+            n_words=64, device=d), (r(B, 60, 283), words(B, 60),
+                                    r(B, 60, 32))),
+        "hierarchy_discriminator": (lambda d: bl.HierarchicalDiscriminator(
+            device=d), (r(B, 60, 282),)),
+        "hierarchy_conv_discriminator": (
+            lambda d: bl.HierarchicalConvDiscriminator(device=d),
+            (r(B, 60, 282),)),
+        "embedding_net": (lambda d: bl.EmbeddingNet(64, 27, 34, device=d),
+                          (None, None, r(B, 4, 27), r(B, 34, 27))),
+        "motion_ae": (lambda d: bl.MotionAE(device=d), (r(B, 34, 126),)),
+        "legacy_linear": (lambda d: legacy.linear(512, 256).to(d),
+                          (r(B, 512),)),
+        "legacy_conv2d": (lambda d: legacy.conv2d(32, 64).to(d),
+                          (r(B, 32, 32, 32),)),
+        "legacy_conv_transpose2d": (
+            lambda d: legacy.conv_transpose2d(64, 32).to(d),
+            (r(B, 64, 16, 16),)),
+        "legacy_nn_conv2d": (lambda d: legacy.nn_conv2d(32, 32).to(d),
+                             (r(B, 32, 16, 16),)),
+        "legacy_residual_block": (lambda d: legacy.ResidualBlock(16).to(d),
+                                  (r(B, 16, 8, 8, 8),)),
+    }
+
+
+def flat_outputs(out):
+    if out is None or isinstance(out, int):
+        return []
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in flat_outputs(o)]
+    return [out]
+
+
+def phase_zoo_baselines(card):
+    """12d: each baseline, discriminator and legacy factory card vs CPU at
+    batch 64; the evaluator's statistics card vs CPU."""
+    g = torch.Generator().manual_seed(12)
+    out = {}
+    reset_counts()
+    for i, (name, (build, inputs)) in enumerate(zoo_nets(g).items()):
+        torch.manual_seed(100 + i)
+        net = build(DEVICE).eval()
+        cpu = build("cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             net.state_dict().items()})
+        on_card = [None if t is None else t.to(DEVICE) for t in inputs]
+        with torch.no_grad():
+            got = flat_outputs(net(*on_card))
+            want = flat_outputs(cpu(*inputs))
+            ms = cuda_ms(lambda: net(*on_card), iters=3)
+        share = max(check_rel(f"{name} output {j}", a, b)
+                    for j, (a, b) in enumerate(zip(got, want)))
+        if len(got) != len(want) or not got:
+            raise SystemExit(f"{name}: outputs {len(got)} vs {len(want)}")
+        log(f"  [{card}] {name}: {ms:.2f} ms per forward of {ZOO_B}")
+        out[name] = {"ms_per_forward": ms, "card_vs_cpu": share}
+        del net, cpu
+    assert_no_launches("the baselines")
+    for pose_dim in (27, 126):
+        evs = {}
+        for dev in (DEVICE, "cpu"):
+            evs[dev] = zoo_eval.EmbeddingSpaceEvaluator(
+                pose_dim, seed=5, device=dev,
+                state_dict=None if dev == DEVICE else
+                {k: v.cpu() for k, v in evs[DEVICE].net.state_dict().items()})
+        r = np.random.RandomState(pose_dim)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            real = r.randn(ZOO_B, 34, pose_dim).astype(np.float32)
+            fake = (0.7 * r.randn(ZOO_B, 34, pose_dim) + 0.3).astype(
+                np.float32)
+            for ev in evs.values():
+                ev.push_samples(fake, real)
+        wall = time.perf_counter() - t0
+        (fd1, fdist1), (fd0, fdist0) = (evs[DEVICE].get_scores(),
+                                        evs["cpu"].get_scores())
+        div1, div0 = (evs[DEVICE].get_diversity_scores(),
+                      evs["cpu"].get_diversity_scores())
+        shares = [abs(a - b) / abs(b) for a, b in ((fd1, fd0),
+                                                   (fdist1, fdist0),
+                                                   (div1, div0))]
+        ok = max(shares) <= ZOO_EVAL_REL and np.isfinite([fd1, fdist1,
+                                                          div1]).all()
+        log(f"  evaluator pose_dim {pose_dim}, 8 x {ZOO_B} windows: frechet "
+            f"{fd1:.6f} (CPU {fd0:.6f}), feature distance {fdist1:.6f} "
+            f"(CPU {fdist0:.6f}), diversity {div1:.6f} (CPU {div0:.6f}); "
+            f"largest relative difference {max(shares):.3e} (at most "
+            f"{ZOO_EVAL_REL}) {'ok' if ok else 'FAIL'}; both pushes "
+            f"{wall:.2f} s")
+        if not ok:
+            raise SystemExit(f"evaluator {pose_dim}: the card disagrees "
+                             "with the CPU")
+        out[f"evaluator_{pose_dim}"] = {"frechet": fd1, "feat_dist": fdist1,
+                                        "diversity": div1,
+                                        "rel": max(shares)}
+    return out
+
+
+def phase_zoo(card, work: Path, gen, counts, serving):
+    """Phase 12, in the work directory of phases 6-11 (12c reads phase 6's
+    fp32 generator)."""
+    t0 = time.perf_counter()
+    parts = (
+        ("serving", "12a: the generator variants' serving forward, batch "
+         f"{BATCH}, fp32 and bf16, fused attention",
+         lambda: phase_zoo_serving(gen, card, counts, serving)),
+        ("train", f"12b: the GAN trainer per --variant (--preset fast, "
+         f"--synthetic {TRAIN_SAMPLES}, batch {TRAIN_BATCH}, one epoch), "
+         "then one d_first step of base and padding_initial card vs CPU",
+         lambda: phase_zoo_train(card, work)),
+        ("cvae", "12c: train_auxiliary --cvae_version 1 and 2 on phase 6's "
+         "generator, card vs CPU steps, HandCVAE",
+         lambda: phase_zoo_cvae(card, work)),
+        ("baselines", "12d: the baselines, discriminators and legacy "
+         f"factories at their default widths, batch {ZOO_B}, card vs CPU; "
+         "the evaluator", lambda: phase_zoo_baselines(card)))
+    out, walls = {}, {}
+    for name, title, run in parts:
+        log(f"phase {title}")
+        t = time.perf_counter()
+        out[name] = run()
+        walls[name] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    log(f"  [{card}] phase 12 wall {out['wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
@@ -2702,6 +3084,7 @@ def main(argv) -> int:
                             args.profile)
         dp = phase_dp(card, work, counts, evals)
         migrate = phase_migrate(card, work, counts, store)
+        zoo = phase_zoo(card, work, gen, counts, serving)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -2710,7 +3093,7 @@ def main(argv) -> int:
 
     detail = {"card": card, "serving": serving, "eval": evals,
               "train": train, "aux": aux, "classifier": kfold, "store": store,
-              "data_parallel": dp, "migration": migrate,
+              "data_parallel": dp, "migration": migrate, "zoo": zoo,
               "se_stage": se_detail, "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     keys = ("ms_per_step", "samples_per_s", "peak_bytes", "wall_s")
@@ -2727,7 +3110,17 @@ def main(argv) -> int:
         "migration": {"wall_s": migrate["wall_s"],
                       "clips_convert_s": migrate["clips"]["convert_s"],
                       "windows_convert_s": migrate["windows"]["convert_s"],
-                      "eval_wall_s": migrate["windows"]["eval_wall_s"]}}))
+                      "eval_wall_s": migrate["windows"]["eval_wall_s"]},
+        "zoo": {"wall_s": zoo["wall_s"], "serving_ms": {
+            k: v["ms_per_forward"] for k, v in zoo["serving"].items()},
+            "train_ms_per_step": {k: v["ms_per_step"] for k, v in
+                                  zoo["train"].items()
+                                  if k in ZOO_VARIANTS},
+            "cvae_ms_per_step": {k: v["ms_per_step"] for k, v in
+                                 zoo["cvae"].items() if k != "hand"},
+            "baselines_ms": {k: v["ms_per_forward"] for k, v in
+                             zoo["baselines"].items()
+                             if "ms_per_forward" in v}}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ emotiongestures_tpu/cli/train_auxiliary.py):
 
   --model fgd       FGD feature autoencoder (model/FGD.py)
   --model skeleton  skeleton emotion classifier (skeleton_classifer/)
-  --model cvae      emotion-prior CVAE v3 (CAVE/BEAT_CVAE.py) over the
+  --model cvae      emotion-prior CVAE (--cvae_version 1, 2 or 3, default 3;
+                    CAVE/BEAT_CVAE.py) over the
                     emotion features of a frozen generator, loaded from
                     --generator_checkpoint (a GAN trainer's
                     --model_save_path or its generator/ directory), or
@@ -42,8 +43,9 @@ TMMemory couples the global batch, as in one process); only rank 0 writes
 the log and the checkpoints. Under the launcher `main` returns (None, rank
 0's summary).
 
-Not ported yet, and refused with an error naming the ROADMAP.md item (queue
-1): --cvae_version other than 3 (item 7). Run from the command line on the
+--cvae_version 1 or 2 trains the MLP CVAEs (models/cvae.py) on the same
+features; their decoders end at 512, so they need --d_model 512 and 60
+--n_poses, and refuse another --d_model. Run from the command line on the
 card, the trainer turns TF32 off for its process (every trainer here is
 fp32); `main()` called from other code leaves that switch to its caller.
 """

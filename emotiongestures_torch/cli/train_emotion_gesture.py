@@ -38,9 +38,11 @@ metrics.jsonl and the checkpoints, and every rank resumes from the same
 step. Under the launcher `main` returns (None, None, rank 0's summary): the
 states live in the ranks.
 
+--variant memory|base|spatial_memory|padding_initial picks the generator's
+prior encoder (models/generator.py); a --resume continues a run of the same
+--variant, and the checkpoint of another variant fails its strict load.
 Not ported yet, and refused with an error naming the ROADMAP.md item (queue
-1): --model_parallel > 1 (tensor parallelism, item 6b) and the generator
-variants other than `memory` (item 7, refused by `train.gan.build_models`).
+1): --model_parallel > 1 (tensor parallelism, item 6b).
 Run from the command line in fp32 on the card, the trainer turns TF32 off
 for its process; `main()` called from other code leaves that switch to its
 caller.

@@ -1,6 +1,14 @@
-"""The co-speech gesture generator, `variant="memory"`
-(port of emotiongestures_tpu/models/generator.py;
-reference Full_model/Models_memory.py:426-565).
+"""The co-speech gesture generator and its prior-encoder variants
+(port of emotiongestures_tpu/models/generator.py; reference
+Full_model/Models_memory.py:426-565 and its three near-copies):
+
+  variant="memory"          Models_memory.Transformer: SPMemoryV1 + TMMemory
+  variant="base"            Models.Transformer: PriorConvEncoder
+  variant="spatial_memory"  Models_spatial_memory: SPMemoryV2, no TMMemory
+  variant="padding_initial" Models_padding_initial: SPMemoryV2 + TMMemory
+
+The switch is the JAX package's (its models/generator.py:402-415), which
+keeps TMMemory in `padding_initial`.
 
 forward(spec (B, 128, T), text (B, frames) int, prior (B, prior, pose_dim),
         sampled_emotion_feature (B, frames, d_model) or None)
@@ -24,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.layers import BatchNorm, Conv1d, Conv2d, Dropout, Linear
@@ -66,6 +75,37 @@ class AudioResNetEncoder(nn.Module):
         return self.fc2(self.dropout(self.fc1(x)))
 
 
+class AudioConvEncoder(nn.Module):
+    """The lighter 2-conv audio encoder (Models_memory.py:59-89), which no
+    variant uses: (B, n_mels, T) -> (B, frames, d_model). Each conv is
+    conv3x3 -> relu -> BatchNorm -> 3x3 max pool at stride 2, padding 1.
+
+    The JAX package has no weight table for it; its names (`conv1`, `bn1`,
+    `conv2`, `bn2`, `fc1`, `fc2`) are the JAX module's, in the style of
+    AudioResNetEncoder's reference names. Loading a reference `.pth` into
+    it is unverified: the reference tree was not at hand to check them."""
+
+    def __init__(self, frames=60, d_model=512, n_mels=128, spec_len=124):
+        super().__init__()
+        self.frames = frames
+        self.conv1 = Conv2d(1, frames, 3, padding=1)
+        self.bn1 = BatchNorm(frames)
+        self.conv2 = Conv2d(frames, frames, 3, padding=1)
+        self.bn2 = BatchNorm(frames)
+        flat = _half_up(_half_up(n_mels)) * _half_up(_half_up(spec_len))
+        self.fc1 = Linear(flat, d_model)
+        self.dropout = Dropout(0.2)
+        self.fc2 = Linear(d_model, d_model)
+
+    def forward(self, spec):
+        x = spec[:, None]
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
+            x = F.max_pool2d(bn(torch.relu(conv(x))), 3, stride=2,
+                             padding=1)
+        x = x.reshape(x.shape[0], self.frames, -1)
+        return self.fc2(self.dropout(self.fc1(x)))
+
+
 class TextEncoderTCN(nn.Module):
     """Word indices (B, frames) -> (B, frames, 512) (Models_memory.py:143-179):
     embedding -> TCN -> fc over the TIME axis -> linear to 512."""
@@ -89,6 +129,34 @@ class TextEncoderTCN(nn.Module):
         return self.decoder(y)
 
 
+class PriorConvEncoder(nn.Module):
+    """Seed poses (B, prior_frames, pose_dim) -> (B, frames, d_model), the
+    `base` variant's prior encoder (Full_model/Models.py:184-212): two
+    frame-channel convs over pose_dim, each conv -> relu -> BatchNorm, then
+    fc1 -> dropout -> fc2 over pose_dim.
+
+    The JAX package has no weight table for it; its names (`conv1`, `bn1`,
+    `conv2`, `bn2`, `fc1`, `fc2`) are the JAX module's. Loading a reference
+    `.pth` into it is unverified: the reference tree was not at hand to
+    check them."""
+
+    def __init__(self, prior_frames=10, frames=60, pose_dim=282,
+                 d_model=512):
+        super().__init__()
+        self.conv1 = Conv1d(prior_frames, frames, 3, padding=1)
+        self.bn1 = BatchNorm(frames)
+        self.conv2 = Conv1d(frames, frames, 3, padding=1)
+        self.bn2 = BatchNorm(frames)
+        self.fc1 = Linear(pose_dim, d_model)
+        self.dropout = Dropout(0.2)
+        self.fc2 = Linear(d_model, d_model)
+
+    def forward(self, x):
+        x = self.bn1(torch.relu(self.conv1(x)))
+        x = self.bn2(torch.relu(self.conv2(x)))
+        return self.fc2(self.dropout(self.fc1(x)))
+
+
 class SPMemoryV1(nn.Module):
     """Spatial memory v1 (Models_memory.py:215-251), vectorised: for the
     first chunk_length predicted frames, gate = sigmoid(<mem_b, pred_bc>),
@@ -108,6 +176,36 @@ class SPMemoryV1(nn.Module):
         gate = torch.sigmoid(torch.einsum("bd,bcd->bc", mem, head))[..., None]
         blended = gate * head + (1.0 - gate) * mem[:, None, :]
         return torch.cat([blended, pred[:, self.chunk:]], dim=1)
+
+
+class SPMemoryV2(nn.Module):
+    """Spatial memory v2 (Full_model/Models_spatial_memory.py:255-295). The
+    reference blends into a clone of the predicted frames and returns the
+    original, so v2 changes nothing and its parameters get no gradient.
+    Its conv encoder over the last chunk (chunk -> 1 -> 1 frame channels,
+    each conv -> relu -> BatchNorm) still runs in train mode, where its
+    BatchNorms take batch statistics and write their running statistics,
+    as the JAX step writes them; in eval mode it has no effect and is
+    skipped.
+
+    The JAX package has no weight table for it; its names (`conv1`, `bn1`,
+    `conv2`, `bn2`) are the JAX module's. Loading a reference `.pth` into
+    it is unverified: the reference tree was not at hand to check them."""
+
+    def __init__(self, prior_frames, pose_dim, chunk_length=10):
+        super().__init__()
+        self.prior_frames, self.chunk = prior_frames, chunk_length
+        self.conv1 = Conv1d(chunk_length, 1, 3, padding=1)
+        self.bn1 = BatchNorm(1)
+        self.conv2 = Conv1d(1, 1, 3, padding=1)
+        self.bn2 = BatchNorm(1)
+
+    def forward(self, initial, pred):
+        if self.training:
+            h = initial[:, self.prior_frames - self.chunk:]
+            h = self.bn1(torch.relu(self.conv1(h)))
+            self.bn2(torch.relu(self.conv2(h)))
+        return pred
 
 
 def batch_coupling(mem: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
@@ -147,10 +245,12 @@ class TMMemory(nn.Module):
 
 class PriorMemoryEncoder(nn.Module):
     """Seed poses -> extrapolated frames -> SP/TM memory -> d_model
-    (Models_memory.py:299-345). The conv treats the frames as channels."""
+    (Models_memory.py:299-345). The conv treats the frames as channels.
+    `spatial_v2` takes SPMemoryV2 in place of SPMemoryV1; `temporal=False`
+    leaves TMMemory out."""
 
     def __init__(self, prior_frames=10, frames=60, pose_dim=282, d_model=512,
-                 chunk_length=10):
+                 chunk_length=10, spatial_v2=False, temporal=True):
         super().__init__()
         pred_length = frames - prior_frames
         self.pred_conv = nn.Sequential(
@@ -158,19 +258,26 @@ class PriorMemoryEncoder(nn.Module):
             BatchNorm(pred_length),
             Conv1d(pred_length, pred_length, 3, padding=1), nn.ReLU(),
             BatchNorm(pred_length))
-        self.spatial_memory = SPMemoryV1(prior_frames, pose_dim, chunk_length)
-        self.temporal_memory = TMMemory(prior_frames, pose_dim, chunk_length)
+        spatial = SPMemoryV2 if spatial_v2 else SPMemoryV1
+        self.spatial_memory = spatial(prior_frames, pose_dim, chunk_length)
+        self.temporal_memory = (TMMemory(prior_frames, pose_dim, chunk_length)
+                                if temporal else None)
         self.post_header = _mlp(pose_dim, d_model, d_model, Dropout(0.2))
 
     def forward(self, x):  # (B, prior, pose_dim)
         pred = self.pred_conv(x)  # (B, pred_length, pose_dim)
         pred = self.spatial_memory(x, pred)
-        pred = self.temporal_memory(x, pred)
+        if self.temporal_memory is not None:
+            pred = self.temporal_memory(x, pred)
         return self.post_header(torch.cat([x, pred], dim=1))
 
 
+VARIANTS = ("memory", "base", "spatial_memory", "padding_initial")
+
+
 class GestureTransformer(nn.Module):
-    """The full generator, variant "memory". `fused_attention=True` routes
+    """The full generator. `variant` picks the prior encoder (the module
+    docstring); the rest is the same in all four. `fused_attention=True` routes
     the eval-mode attention sublayers (3 encoder self-attention, 3 decoder
     cross-attention at the flagship depth) through `ops/fused_attention.py`.
     Built on `device` (the card unless the CPU is asked for), in eval mode.
@@ -186,16 +293,26 @@ class GestureTransformer(nn.Module):
                  d_v=64, dropout=0.2, n_position=60, chunk_length=10,
                  wordembed_dim=300, text_dropout=0.1, n_emotions=8,
                  spec_len=124, fused_attention=False, remat_audio=False,
-                 device=None):
+                 variant="memory", device=None):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown generator variant {variant!r}; one "
+                             f"of {VARIANTS}")
+        self.variant = variant
         self.text_encoder = TextEncoderTCN(n_words, wordembed_dim,
                                            frames=frames,
                                            dropout=text_dropout)
         self.audio_encoder = AudioResNetEncoder(frames, d_model,
                                                 spec_len=spec_len,
                                                 remat_blocks=remat_audio)
-        self.prior_seq_encoder = PriorMemoryEncoder(
-            prior_frames, frames, pose_dim, d_model, chunk_length)
+        if variant == "base":
+            self.prior_seq_encoder = PriorConvEncoder(prior_frames, frames,
+                                                      pose_dim, d_model)
+        else:
+            self.prior_seq_encoder = PriorMemoryEncoder(
+                prior_frames, frames, pose_dim, d_model, chunk_length,
+                spatial_v2=variant in ("spatial_memory", "padding_initial"),
+                temporal=variant in ("memory", "padding_initial"))
         self.emotion_proj = _mlp(d_model, d_model, d_model, Dropout(0.2))
         self.semantic_proj = _mlp(d_model, d_model, d_model, Dropout(0.2))
         self.fusion_proj = _mlp(d_model, d_model, d_model, nn.ReLU())

@@ -131,23 +131,35 @@ class DecoderLayer(nn.Module):
         return self.pos_ffn(x), attn
 
 
+class PositionalEncoding(nn.Module):
+    """The fixed sinusoid table added to the input (Models_memory.py:25-48).
+    The table is built when called, not held: the reference's `pos_table`
+    buffer is no state_dict entry of the port (utils/weights.py drops it on
+    import)."""
+
+    def __init__(self, d_hid: int, n_position: int = 200):
+        super().__init__()
+        self.d_hid, self.n_position = d_hid, n_position
+
+    def forward(self, x):
+        table = sinusoid_position_table(self.n_position, self.d_hid)
+        return x + table[: x.shape[1]].to(x.device, x.dtype)
+
+
 class TransformerEncoder(nn.Module):
     """pos-enc -> dropout -> N x EncoderLayer."""
 
     def __init__(self, n_layers, n_head, d_k, d_v, d_model, d_inner,
                  dropout=0.1, n_position=200, fused=False):
         super().__init__()
-        self.d_model, self.n_position = d_model, n_position
+        self.position_enc = PositionalEncoding(d_model, n_position)
         self.dropout = Dropout(dropout)
         self.layer_stack = nn.ModuleList([
             EncoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout, fused)
             for _ in range(n_layers)])
 
     def forward(self, src_seq, src_mask=None):
-        table = sinusoid_position_table(self.n_position, self.d_model)
-        x = src_seq + table[: src_seq.shape[1]].to(src_seq.device,
-                                                   src_seq.dtype)
-        x = self.dropout(x)
+        x = self.dropout(self.position_enc(src_seq))
         for layer in self.layer_stack:
             x, _ = layer(x, slf_attn_mask=src_mask)
         return x
@@ -168,3 +180,17 @@ class TransformerDecoder(nn.Module):
         for layer in self.layer_stack:
             x, _ = layer(x, enc_output, dec_enc_attn_mask=dec_enc_attn_mask)
         return x
+
+
+def get_pad_mask(seq: torch.Tensor, pad_idx: int) -> torch.Tensor:
+    """(B, 1, L) bool, True off the padding (Models_memory.py:13-14); the
+    main path uses no mask."""
+    return (seq != pad_idx)[:, None, :]
+
+
+def get_subsequent_mask(seq: torch.Tensor) -> torch.Tensor:
+    """(1, L, L) bool lower triangle: position i sees positions <= i
+    (Models_memory.py:17-22); the main path uses no mask."""
+    n = seq.shape[1]
+    return torch.tril(torch.ones((1, n, n), dtype=torch.bool,
+                                 device=seq.device))

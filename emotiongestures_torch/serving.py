@@ -5,7 +5,8 @@ package's bench.py::_build_forward times and its eval CLI's eval_batch wraps.
     server = GestureServer(fused_attention=True, precision="bfloat16")
     poses, emo, sem, logits, text_emb = server.generate(waves, y, text, prior)
 
-`precision="bfloat16"` is the JAX serving recipe: generator parameters in
+`variant` picks the generator's prior encoder (models/generator.py; the
+flagship is "memory"). `precision="bfloat16"` is the JAX serving recipe: generator parameters in
 bf16 with BatchNorm statistics in fp32, the CVAE cast whole, and the inputs
 spec, prior and y cast to bf16. For full fp32 on the card under
 `precision="float32"`, the caller turns TF32 off with
@@ -40,7 +41,8 @@ class GestureServer:
                  pose_dim: int = 282, prior_frames: int = 10,
                  d_model: int = 512, d_inner: int = 2048, n_layers: int = 3,
                  n_head: int = 8, d_k: int = 64, fused_attention: bool = True,
-                 precision: str = "float32", device=None, seed: int = 0):
+                 precision: str = "float32", device=None, seed: int = 0,
+                 variant: str = "memory"):
         self.device = resolve_device(device)
         self.dtype = DTYPES[precision]
         self.spec_len = calc_spectrogram_length_from_motion_length(frames, 15)
@@ -50,7 +52,7 @@ class GestureServer:
             prior_frames=prior_frames, d_model=d_model, d_inner=d_inner,
             n_layers=n_layers, n_head=n_head, d_k=d_k, d_v=d_k,
             spec_len=self.spec_len, fused_attention=fused_attention,
-            device=self.device)
+            variant=variant, device=self.device)
         self.vae = EmotionCVAEv3(frames=frames, feat_dim=d_model,
                                  device=self.device)
         if self.dtype == torch.bfloat16:

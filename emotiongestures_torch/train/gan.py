@@ -103,18 +103,14 @@ def _seed_words(entropy, n: int) -> list:
 
 
 def build_models(cfg: GANConfig, device=None):
-    """The generator and the motion discriminator, on `device` (the card
-    unless the CPU is asked for)."""
-    if cfg.variant != "memory":
-        raise NotImplementedError(
-            f"generator variant {cfg.variant!r} is not ported to the PyTorch "
-            "port yet (ROADMAP.md queue 1, item 7); use --variant memory")
+    """The generator of `cfg.variant` and the motion discriminator, on
+    `device` (the card unless the CPU is asked for)."""
     gen = GestureTransformer(
         n_words=cfg.n_words, frames=cfg.frames, pose_dim=cfg.pose_dim,
         prior_frames=cfg.prior_frames, d_model=cfg.d_model,
         d_inner=cfg.d_inner, n_layers=cfg.n_layers, n_head=cfg.n_head,
         d_k=cfg.d_k, d_v=cfg.d_v, remat_audio=cfg.remat_audio,
-        device=device)
+        variant=cfg.variant, device=device)
     disc = MotionDiscriminator(frames=cfg.frames - 1, pose_dim=cfg.pose_dim,
                                d_model=cfg.pose_dim, device=device)
     return gen, disc

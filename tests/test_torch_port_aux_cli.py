@@ -114,8 +114,8 @@ def test_cvae_features_from_a_generator_checkpoint(run_dir):
      "must divide"),
     (["--model", "fgd", "--coordinator_address", "localhost:1234",
       "--num_processes", "2", "--process_id", "2"], SystemExit, "outside"),
-    (["--model", "cvae", "--cvae_version", "2"], NotImplementedError,
-     "item 7"),
+    (["--model", "cvae", "--cvae_version", "2", "--d_model", "64"],
+     ValueError, "512"),
     (SKELETON + ["--grad_clip", "-0.5"], ValueError, "grad_clip"),
 ], ids=["real-data", "devices", "multi-host", "process-id", "cvae-v2",
         "negative-clip"])

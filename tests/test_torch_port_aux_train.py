@@ -249,9 +249,13 @@ def test_cvae_one_step(monkeypatch):
 
 
 def test_cvae_versions_1_and_2_are_refused():
+    """v1 and v2 decode 512-wide features: refused at another width (the
+    JAX step fails there on the L1 shapes); an unknown version too."""
     for version in (1, 2):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tcvae.create_state(0, version=version, device="cpu")
+        with pytest.raises(ValueError, match="512"):
+            tcvae.create_state(0, version=version, feat_dim=64, device="cpu")
+    with pytest.raises(ValueError, match="version"):
+        tcvae.create_state(0, version=4, device="cpu")
 
 
 def test_plateau_detector_matches_jax():

@@ -191,6 +191,96 @@ def test_entry_points_default_to_cuda():
             call()
 
 
+def _zoo_factories():
+    """The model zoo's public constructors and its two lifted CLI flags:
+    name -> build(device)."""
+    from emotiongestures_torch.cli import train_auxiliary as aux_cli
+    from emotiongestures_torch.cli import train_emotion_gesture as train_cli
+    from emotiongestures_torch.eval.embedding_space_evaluator import (
+        EmbeddingSpaceEvaluator,
+    )
+    from emotiongestures_torch.models import baselines as bl
+    from emotiongestures_torch.models.cvae import (
+        EmotionCVAEv1,
+        EmotionCVAEv2,
+        HandCVAE,
+    )
+    from emotiongestures_torch.models.generator import GestureTransformer
+    from emotiongestures_torch.train import cvae, gan
+
+    def cli(mod, flags):
+        def run(device):
+            argv = flags + ([] if device is None else ["--device", device])
+            return mod.main(mod.build_parser().parse_args(argv))
+        return run
+
+    small = dict(d_model=64, d_inner=128, n_layers=1)
+    return {
+        **{f"generator-{v}": (lambda v: lambda device: GestureTransformer(
+            n_words=8, **small, variant=v, device=device))(v)
+           for v in ("base", "spatial_memory", "padding_initial")},
+        "cvae-v1": lambda device: EmotionCVAEv1(device=device),
+        "cvae-v2": lambda device: EmotionCVAEv2(device=device),
+        "hand-cvae": lambda device: HandCVAE(device=device),
+        "cvae-state-v1": lambda device: cvae.create_state(
+            version=1, device=device),
+        "gan-states-base": lambda device: gan.create_states(
+            gan.GANConfig(**small, variant="base"), device=device),
+        "seq2seq": lambda device: bl.Seq2SeqNet(n_words=8, device=device),
+        "s2g-generator": lambda device: bl.S2GGenerator(device=device),
+        "s2g-discriminator": lambda device: bl.S2GDiscriminator(
+            device=device),
+        "trimodal-generator": lambda device: bl.PoseGenerator(
+            n_words=8, device=device),
+        "trimodal-discriminator": lambda device: bl.TrimodalDiscriminator(
+            device=device),
+        "conv-discriminator": lambda device: bl.ConvDiscriminator(
+            device=device),
+        "hierarchy-wav-encoder": lambda device: bl.HierarchicalWavEncoder(
+            device=device),
+        "hierarchy-generator": lambda device: bl.HierarchicalPoseGenerator(
+            n_words=8, device=device),
+        "hierarchy-discriminator": lambda device:
+        bl.HierarchicalDiscriminator(device=device),
+        "hierarchy-conv-discriminator": lambda device:
+        bl.HierarchicalConvDiscriminator(device=device),
+        "embedding-net": lambda device: bl.EmbeddingNet(8, 27, 34,
+                                                        device=device),
+        "motion-ae": lambda device: bl.MotionAE(device=device),
+        "evaluator-27": lambda device: EmbeddingSpaceEvaluator(
+            27, device=device).net,
+        "evaluator-126": lambda device: EmbeddingSpaceEvaluator(
+            126, device=device).net,
+        "gan-cli-variant": cli(train_cli, [
+            "--synthetic", "8", "--batch_size", "8", "--variant", "base"]),
+        "aux-cli-cvae-v1": cli(aux_cli, [
+            "--model", "cvae", "--cvae_version", "1", "--synthetic", "8",
+            "--batch_size", "8"]),
+    }
+
+
+ZOO = _zoo_factories()
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_model_zoo_defaults_to_cuda(name):
+    """The zoo's constructors and the lifted --variant / --cvae_version
+    paths: without a card, not asking for the CPU raises; asked for it, a
+    module is built there (a CLI is only checked to refuse)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    build = ZOO[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(None)
+    if "cli" in name:
+        return
+    built = build("cpu")
+    modules = [s.module for s in built] if isinstance(built, tuple) else [
+        getattr(built, "module", built)]
+    for m in modules:
+        assert all(p.device.type == "cpu" for p in m.parameters()), name
+
+
 def test_package_data_holds_every_kernel_source():
     """An installed port carries every source it builds at run time (the
     CUDA kernels and the C++ batch gather)."""

@@ -102,7 +102,7 @@ def test_profile_dir_writes_a_trace(run_dir, tmp_path):
     (["--model_parallel", "2"], NotImplementedError, "item 6"),
     (["--coordinator_address", "localhost:1234", "--num_processes", "3",
       "--process_id", "0"], SystemExit, "must divide"),
-    (["--variant", "base"], NotImplementedError, "item 7"),
+    (["--variant", "unknown"], SystemExit, "2"),
 ], ids=["real-data", "devices", "model-parallel", "multi-host", "variant"])
 def test_unported_paths_are_refused(run_dir, extra, error, match):
     with pytest.raises(error, match=match):

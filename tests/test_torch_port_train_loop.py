@@ -160,5 +160,5 @@ def test_unknown_update_order_and_variant_are_refused():
     cfg, gs, ds = _states(update_order="both")
     with pytest.raises(ValueError, match="update_order"):
         gan.train_step(gs, ds, BATCH, 0, cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gan.build_models(gan.GANConfig(variant="base"), device="cpu")
+    with pytest.raises(ValueError, match="variant"):
+        gan.build_models(gan.GANConfig(variant="unknown"), device="cpu")

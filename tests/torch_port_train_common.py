@@ -134,6 +134,15 @@ def patch_flax_dropout(monkeypatch):
         lambda self, inputs, deterministic=None, rng=None: inputs)
 
 
+def train_state(model, variables, tx):
+    """The JAX package's create_train_state with the optimizer's init under
+    jit: the same zeros, one compile instead of an eager op per leaf."""
+    state = create_train_state(model, {"params": {}}, tx)
+    return state.replace(params=variables["params"],
+                         batch_stats=variables.get("batch_stats", {}),
+                         opt_state=jax.jit(tx.init)(variables["params"]))
+
+
 def states(cfg, seed=0, float64=False):
     """Port states on the CPU (dropout off) and the JAX states holding the
     same weights, with the same optimizer. `float64`: both sides in double
@@ -152,9 +161,9 @@ def states(cfg, seed=0, float64=False):
             return jschedules.adam_staged(cfg.lr, cfg.steps_per_epoch, **kw)
         return jschedules.adam(lr=cfg.lr, **kw)
 
-    jg = create_train_state(jgen, jax_variables(gs.module, generator_table(
+    jg = train_state(jgen, jax_variables(gs.module, generator_table(
         gs.module)), tx())
-    jd = create_train_state(jdisc, jax_variables(
+    jd = train_state(jdisc, jax_variables(
         ds.module, motion_discriminator_table()), tx())
     return (gs, ds), (jg, jd), jcfg
 
