@@ -158,6 +158,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      windows into EmbeddingSpaceEvaluator at pose_dim 27 and 126 on the
      card and on the CPU: Fréchet distance, feature distance and
      diversity within ZOO_EVAL_REL. Each part's wall and the phase's.
+ 13. the JAX package's orbax checkpoints and the remaining tools, in the
+     work directory: 13a phase 4's serving weights (the flagship generator
+     and CVAE v3) laid out as the JAX package's TrainStates (step 40,
+     seeded Adam moments) and written by tests/fixtures/
+     make_orbax_fixture.py's write_orbax (OCDBT, zarr v2, raw-block zstd
+     frames; numpy only), then read by the port (utils/orbax.py, the C++
+     zstd decoder built with g++ in phase 1): GestureServer's modules in
+     fp32 and bf16 (read wall, MB/s, zstd MB/s; ms per forward of 1024
+     beside phase 4's; 6 attention launches; fp32 poses equal to the
+     source's bit for bit), the eval CLI's build_models and one
+     eval_batch of 1024 (every output equal to the source modules' bit
+     for bit, 6 launches) and the demo (--frontend pallas, poses equal to
+     its run on .pth files of the same modules, 1 mel launch); 13b the
+     checkpoints the JAX package's save_checkpoint wrote
+     (tests/fixtures/orbax_jax: zstd's Huffman and FSE blocks, orbax's
+     merged OCDBT tree) against JAX's outputs (JAX_FIXTURE_TOL), and the
+     decoder's MB/s on their chunks; 13c a reference .pth of the flagship
+     generator through convert_checkpoint, then the GAN trainer's `main`
+     --resume for 2 steps from step 0, and from 13a's orbax generator:
+     the step and Adam's moments carried bit for bit, steps 41-42; 13d
+     ops/conv_gemm.py's taps and im2col against F.conv2d at stage 3 (B
+     128, 32 x 31, C = K = 128), fp32 and bf16 (CONV_TOL), ms of each;
+     13e the demo's --render: with matplotlib the first sample drawn,
+     without it the refusal before any model is built. Each part's wall
+     and the phase's.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -171,6 +196,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -180,6 +206,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
+from emotiongestures_torch.cli import (  # noqa: E402
+    convert_checkpoint as convert_ckpt_cli,
+)
 from emotiongestures_torch.cli import convert_data as convert_cli  # noqa: E402,E501
 from emotiongestures_torch.cli import demo  # noqa: E402
 from emotiongestures_torch.cli import (  # noqa: E402
@@ -195,6 +224,7 @@ from emotiongestures_torch.cli import (  # noqa: E402
 from emotiongestures_torch.core import layers as L  # noqa: E402
 from emotiongestures_torch.core import precision as prec  # noqa: E402
 from emotiongestures_torch.core.device import fp32_exact_on_cuda  # noqa: E402
+from emotiongestures_torch.ops import conv_gemm  # noqa: E402
 from emotiongestures_torch.ops import cuda_lib  # noqa: E402
 from emotiongestures_torch.parallel import distributed, mesh  # noqa: E402
 from emotiongestures_torch.ops import fused_attention as FA  # noqa: E402
@@ -234,6 +264,9 @@ from emotiongestures_torch.train import cvae as cvae_train  # noqa: E402
 from emotiongestures_torch.train import fgd as fgd_train  # noqa: E402
 from emotiongestures_torch.train import gan  # noqa: E402
 from emotiongestures_torch.train import skeleton as skeleton_train  # noqa: E402,E501
+from emotiongestures_torch.models.fgd_ae import FGDAutoEncoder  # noqa: E402
+from emotiongestures_torch.utils import ocdbt, weights  # noqa: E402
+from emotiongestures_torch.utils import zstd as zstd_mod  # noqa: E402
 from emotiongestures_torch.utils.checkpoint import (  # noqa: E402
     load_checkpoint,
     save_checkpoint,
@@ -3034,6 +3067,453 @@ def phase_zoo(card, work: Path, gen, counts, serving):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the JAX package's orbax checkpoints on the card, the checkpoint
+# converter, the 3x3 conv as GEMMs, the demo's --render
+# ---------------------------------------------------------------------------
+
+ORBAX_STEP = 40  # the step of 13a's TrainState trees
+ORBAX_JAX = REPO / "tests" / "fixtures" / "orbax_jax"
+# 13b: the port's outputs on the committed checkpoints against JAX's, of
+# each output's largest entry: the parity default that
+# tests/test_torch_port_orbax.py holds them to on the CPU
+JAX_FIXTURE_TOL = dict(rtol=2e-4, atol=2e-5)
+CONV_SHAPE = (128, 32, 31, 128, 128)  # B, H, W, C, K: stage 3 of the encoder
+# 13d, against F.conv2d: fp32 (TF32 off) as tests/test_conv_gemm.py; bf16
+# operands, both sides summing exact products in fp32 and rounding once to
+# bf16: a bf16 ulp of the largest output (~16) is 0.0625
+CONV_TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
+            "bfloat16": dict(rtol=1e-2, atol=0.125)}
+CONVERT_SAMPLES = 2 * TRAIN_BATCH  # 13c: 2 steps per epoch
+
+
+def fixture_writer():
+    """tests/fixtures/make_orbax_fixture.py (numpy only; shares no code with
+    the port's reader): write_orbax and jax_state_tree."""
+    sys.path.insert(0, str(REPO / "tests" / "fixtures"))
+    try:
+        import make_orbax_fixture
+    finally:
+        sys.path.pop(0)
+    return make_orbax_fixture
+
+
+class ZstdMeter:
+    """Bytes decoded and seconds spent in the zstd decoder meanwhile."""
+
+    def __enter__(self):
+        self.bytes, self.seconds = 0, 0.0
+        self._real = zstd_mod.decompress_into
+
+        def timed(data, out):
+            t = time.perf_counter()
+            n = self._real(data, out)
+            self.seconds += time.perf_counter() - t
+            self.bytes += n
+            return n
+
+        zstd_mod.decompress_into = timed
+        return self
+
+    def __exit__(self, *exc):
+        zstd_mod.decompress_into = self._real
+        return False
+
+    @property
+    def mb_per_s(self) -> float:
+        return self.bytes / max(self.seconds, 1e-9) / 1e6
+
+
+def tree_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def generator_table_of(gen):
+    """The port's weight table of `gen` (the TCN blocks with a downsample
+    read off the module, where the JAX variables would tell)."""
+    blocks = {f"block{i}": ({"downsample": {}} if blk.downsample is not None
+                            else {})
+              for i, blk in enumerate(gen.text_encoder.tcn.network)}
+    return weights.generator_table(
+        {"params": {"text_encoder": {"tcn": blocks}}},
+        n_layers=len(gen.encoder.layer_stack), tcn_layers=len(blocks))
+
+
+def write_jax_state(module, table, path: Path, seed: int):
+    """`module`'s weights as a JAX TrainState tree at ORBAX_STEP with
+    seeded Adam moments, written by the fixture writer. Returns the tree."""
+    fx = fixture_writer()
+    r = np.random.default_rng(seed)
+
+    def moments(path, shape):
+        mu = (1e-3 * r.standard_normal(shape, np.float32))
+        return mu, np.abs(mu) * 1e-2
+
+    state = {k: v.detach().cpu().numpy()
+             for k, v in module.state_dict().items()}
+    tree = fx.jax_state_tree(state, table, ORBAX_STEP, moments)
+    fx.write_orbax(path, tree)
+    return tree
+
+
+def phase_orbax_full(card, work: Path, counts, serving):
+    """13a: phase 4's serving weights (the flagship generator, CVAE v3)
+    written as the JAX package's TrainState checkpoints, read back through
+    the eval CLI, the demo and the serving modules."""
+    root = work / "orbax13"
+    src = GestureServer(fused_attention=True, precision="float32",
+                        device=DEVICE, seed=0)
+    tables = {"generator": generator_table_of(src.gen),
+              "cvae": weights.cvae_v3_table()}
+    t0 = time.perf_counter()
+    trees = {name: write_jax_state(
+        getattr(src, "gen" if name == "generator" else "vae"), tables[name],
+        root / name / f"checkpoint_iteration{ORBAX_STEP}", i)
+        for i, name in enumerate(("generator", "cvae"))}
+    write_s = time.perf_counter() - t0
+    mb = tree_bytes(root) / 1e6
+    log(f"  wrote the generator and CVAE as JAX TrainStates (step "
+        f"{ORBAX_STEP}, Adam moments): {mb:.1f} MB on disk in "
+        f"{write_s:.2f} s")
+
+    # the serving modules, loaded and timed per precision beside phase 4
+    memory_ms = {r["precision"]: r["cvae_generator_ms"] for r in serving}
+    waves, y, text, prior, noise = requests(
+        torch.Generator(device=DEVICE).manual_seed(13), BATCH,
+        torch.device(DEVICE))
+    spec = src.spectrogram(waves)
+    want = src.forward_spec(spec, y, text, prior, noise=noise)[0]
+    out = {"write_s": write_s, "mb": mb}
+    for precision in ("float32", "bfloat16"):
+        server = GestureServer(fused_attention=True, precision=precision,
+                               device=DEVICE, seed=7)
+        torch.cuda.synchronize()
+        with ZstdMeter() as meter:
+            t0 = time.perf_counter()
+            weights.load_reference_checkpoint(
+                server.gen, root, subdir="generator",
+                table=weights.jax_table("generator"))
+            weights.load_reference_checkpoint(
+                server.vae, root / "cvae", table=weights.jax_table("cvae"))
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+        read_mb = meter.bytes / 1e6  # params and batch_stats: no moments
+        ms = cuda_ms(lambda: server.forward_spec(spec, y, text, prior,
+                                                 noise=noise), iters=3)
+        reset_counts()
+        poses = server.forward_spec(spec, y, text, prior, noise=noise)[0]
+        torch.cuda.synchronize()
+        if FA.launches != 6 or not torch.isfinite(poses).all():
+            raise SystemExit(f"13a {precision}: {FA.launches} attention "
+                             "launches (want 6) or non-finite poses")
+        counts["fused_attention"] += FA.launches
+        if precision == "float32" and not torch.equal(poses, want):
+            raise SystemExit("13a: poses from the orbax weights differ from "
+                             "the source modules' in fp32")
+        log(f"  [{card}] {precision}: params and batch_stats, {read_mb:.1f} "
+            f"MB, read and loaded in {read_s:.2f} s ({read_mb / read_s:.0f} "
+            f"MB/s; zstd at {meter.mb_per_s:.0f} MB/s, raw blocks); "
+            f"CVAE+generator {ms:.1f} ms per forward of {BATCH} (phase 4: "
+            f"{memory_ms[precision]:.1f} ms); attention launches 6"
+            + ("; poses equal to the source modules' bit for bit"
+               if precision == "float32" else ""))
+        out[precision] = {"read_s": read_s, "read_mb": read_mb,
+                          "read_mb_per_s": read_mb / read_s,
+                          "zstd_mb_per_s": meter.mb_per_s,
+                          "ms_per_forward": ms,
+                          "memory_ms": memory_ms[precision]}
+        del server
+
+    # the eval CLI: its nets built from the orbax directories (the GAN
+    # --model_save_path layout for the generator), one eval_batch of 1024
+    args = eval_cli.build_parser().parse_args([
+        "--synthetic", str(BATCH), "--test_batch_size", str(BATCH),
+        "--device", DEVICE, "--fused_attention", "--checkpoints_folder_path",
+        str(root), "--cvae_checkpoint", str(root / "cvae")])
+    nets = eval_cli.build_models(args, eval_cli.N_WORDS_SYNTHETIC, DEVICE)
+    if not str(nets.loaded["generator"]).endswith(
+            f"generator/checkpoint_iteration{ORBAX_STEP}"):
+        raise SystemExit(f"13a: eval CLI loaded {nets.loaded}")
+    ref = eval_cli.build_models(eval_cli.build_parser().parse_args([
+        "--synthetic", str(BATCH), "--device", DEVICE, "--fused_attention"]),
+        eval_cli.N_WORDS_SYNTHETIC, DEVICE)
+    ref.gen.load_state_dict(src.gen.state_dict())
+    ref.vae.load_state_dict(src.vae.state_dict())
+    for name in ("fgd", "skeleton"):
+        getattr(ref, name).load_state_dict(getattr(nets, name).state_dict())
+    batch = next(SyntheticGestureDataset(n_samples=BATCH, seed=13).batches(
+        BATCH, shuffle=False, fields=("spectrogram", "text", "pose_seq",
+                                      "eid_label")))
+    inputs = [torch.from_numpy(batch[k]).to(DEVICE) for k in (
+        "spectrogram", "text", "pose_seq", "eid_label")]
+    z = noise[:BATCH]
+    reset_counts()
+    got = eval_cli.eval_batch(nets, *inputs, noise=z)
+    torch.cuda.synchronize()
+    n_attn = FA.launches
+    expect = eval_cli.eval_batch(ref, *inputs, noise=z)
+    if n_attn != 6 or not all(torch.equal(a, b) for a, b in
+                              zip(got, expect)):
+        raise SystemExit(f"13a: the eval CLI on the orbax weights: {n_attn} "
+                         "attention launches (want 6) or outputs that "
+                         "differ from the source modules'")
+    counts["fused_attention"] += n_attn
+    log(f"  eval CLI build_models on the orbax directories, eval_batch of "
+        f"{BATCH}: poses, logits, FGD features and rotation error equal to "
+        "the source modules' bit for bit; attention launches 6")
+
+    # the demo on the orbax directories against the demo on .pth files of
+    # the same modules
+    torch.save(src.gen.state_dict(), root / "generator.pth")
+    torch.save(src.vae.state_dict(), root / "cvae.pth")
+    z = np.random.default_rng(13).standard_normal((2, 32)).astype(
+        np.float32)
+    poses = {}
+    for name, (g, v) in {"orbax": (root / "generator", root / "cvae"),
+                         "pth": (root / "generator.pth",
+                                 root / "cvae.pth")}.items():
+        dargs = demo.build_parser().parse_args([
+            "--frontend", "pallas", "--num_samples", "2", "--device",
+            DEVICE, "--out", str(root / f"demo_{name}"),
+            "--checkpoints_folder_path", str(g), "--cvae_checkpoint",
+            str(v)])
+        reset_counts()
+        summary = demo.main(dargs, noise=z)
+        if FM.launches != 1:
+            raise SystemExit(f"13a demo ({name}): {FM.launches} mel "
+                             "launches (want 1)")
+        counts["mel"] += FM.launches
+        poses[name] = np.load(summary["out"])["poses"]
+    if not np.array_equal(poses["orbax"], poses["pth"]):
+        raise SystemExit("13a: the demo's poses from the orbax weights "
+                         "differ from those from the .pth files")
+    log("  demo --frontend pallas on the orbax directories: poses equal to "
+        "the demo's on .pth files of the same modules; mel launches 1")
+    return out, trees["generator"]["opt_state"][1]
+
+
+def phase_orbax_jax(card):
+    """13b: the committed checkpoints the JAX package's save_checkpoint
+    wrote (zstd's compressed blocks, orbax's merged OCDBT tree), on the
+    card, against JAX's outputs."""
+    ref = np.load(ORBAX_JAX / "outputs.npz")
+    dev = torch.device(DEVICE)
+    vae = cvae_models.EmotionCVAEv3(feat_dim=32, device=DEVICE)
+    fgd_net = FGDAutoEncoder(pose_dim=27, latent_dim=32, device=DEVICE)
+    with ZstdMeter() as meter:
+        for net, name in ((vae, "cvae"), (fgd_net, "fgd")):
+            weights.load_reference_checkpoint(
+                net, ORBAX_JAX / name, table=weights.jax_table(name))
+    t = lambda k: torch.from_numpy(ref[k]).to(dev)  # noqa: E731
+    with torch.no_grad():
+        prior = vae.sample(t("cvae_y"), noise=t("cvae_z"))
+        _, mu, logvar = vae(t("cvae_x"), t("cvae_y"), noise=t("cvae_z"))
+        recon, feat = fgd_net(t("fgd_x"))
+    errs = {}
+    for name, got in (("cvae_prior", prior), ("cvae_mu", mu),
+                      ("cvae_logvar", logvar), ("fgd_recon", recon),
+                      ("fgd_feat", feat)):
+        want = torch.from_numpy(ref[name])
+        scale = want.abs().max().clamp_min(1e-12)
+        errs[name] = check_close(f"13b {name} against JAX (of its largest "
+                                 "entry)", got.cpu() / scale, want / scale,
+                                 **JAX_FIXTURE_TOL)
+    # the decoder on the fixture's compressed chunks, timed over repeats
+    store = ocdbt.OcdbtStore(ORBAX_JAX / "cvae" / "checkpoint_iteration2")
+    chunks = [store.read(k) for k in store.keys()
+              if not k.endswith(b".zarray")]
+    store.close()
+    total, t0 = 0, time.perf_counter()
+    for _ in range(20):
+        for c in chunks:
+            total += len(zstd_mod.decompress(c))
+    mbs = total / (time.perf_counter() - t0) / 1e6
+    log(f"  [{card}] zstd on the JAX-written chunks (Huffman literals, FSE "
+        f"sequences): {total / 20 / 1e6:.2f} MB x 20 at {mbs:.0f} MB/s; "
+        f"the loads decoded {meter.bytes / 1e6:.2f} MB")
+    return {"errors": errs, "zstd_mb_per_s": mbs}
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def phase_convert(card, work: Path, orbax_root: Path, adam):
+    """13c: a reference .pth of the flagship generator through
+    convert_checkpoint, then the GAN trainer resumed from it for 2 steps;
+    and resumed from 13a's orbax generator: the step and Adam's moments
+    carried."""
+    root = work / "convert13"
+    root.mkdir(parents=True, exist_ok=True)
+    torch.manual_seed(21)
+    gen = gen_mod.GestureTransformer(n_words=64, device=DEVICE)
+    torch.save({f"module.{k}": v for k, v in gen.state_dict().items()},
+               root / "gen.pth")
+    written = convert_ckpt_cli.main(convert_ckpt_cli.build_parser()
+                                    .parse_args([
+                                        "--kind", "generator", "--input",
+                                        str(root / "gen.pth"), "--output",
+                                        str(root / "gan" / "generator"),
+                                        "--n_words", "64", "--device",
+                                        DEVICE]))
+    got = torch.load(written, weights_only=True)
+    if got["step"] != 0 or any(not torch.equal(got["model"][k], v.cpu())
+                               for k, v in gen.state_dict().items()):
+        raise SystemExit("13c: the converted checkpoint differs from the "
+                         ".pth")
+    out = {}
+    for name, model_dir, start in (("converted", root / "gan", 0),
+                                   ("orbax", orbax_root, ORBAX_STEP)):
+        if name == "orbax":
+            state, _ = gan.create_states(gan.GANConfig(n_words=64), 0,
+                                         DEVICE)
+            state, ok = load_checkpoint(
+                state, orbax_root / "generator",
+                table=weights.jax_table("generator"))
+            entries = {k: (path, kind) for k, path, kind in
+                       generator_table_of(state.module)}
+            bad = []
+            for n, p in state.module.named_parameters():
+                st = state.optimizer.state[p]
+                path, kind = entries[n]
+                for ours, theirs in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+                    want = weights.TO_TORCH[kind](_at(adam[theirs], path[1:]))
+                    if not np.array_equal(st[ours].cpu().numpy(), want):
+                        bad.append(f"{n} {ours}")
+                if int(st["step"]) != ORBAX_STEP:
+                    bad.append(f"{n} step")
+            if not ok or state.step != ORBAX_STEP or bad:
+                raise SystemExit(f"13c: the orbax resume carried step "
+                                 f"{state.step}, moments off in {bad[:3]}")
+            del state
+        args = train_cli.build_parser().parse_args([
+            "--synthetic", str(CONVERT_SAMPLES), "--batch_size",
+            str(TRAIN_BATCH), "--total_epoch", "1", "--device",
+            DEVICE, "--save_every", "1000", "--model_save_path",
+            str(model_dir), "--preset", "fast", "--resume"])
+        reset_counts()
+        t0 = time.perf_counter()
+        g_state, _, summary = train_cli.main(args)
+        wall = time.perf_counter() - t0
+        if g_state.step != start + 2:
+            raise SystemExit(f"13c ({name}): the trainer ended at step "
+                             f"{g_state.step}, want {start + 2}")
+        bad = [k for k, v in summary["metrics"].items()
+               if not np.isfinite(v)]
+        if bad or (FA.launches, FM.launches, FS.launches) != (0, 0, 0):
+            raise SystemExit(f"13c ({name}): non-finite {bad} or kernel "
+                             "launches in training")
+        log(f"  [{card}] GAN trainer --resume from the {name} checkpoint "
+            f"(step {start}): steps {start + 1}-{start + 2} in {wall:.1f} "
+            "s, finite losses")
+        out[name] = {"start": start, "end": g_state.step, "wall_s": wall}
+        del g_state
+    return out
+
+
+def phase_conv_gemm(card):
+    """13d: taps and im2col against F.conv2d (cuDNN) at the audio
+    encoder's stage-3 shape, fp32 (TF32 off) and bf16."""
+    B, H, W, C, K = CONV_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    x32 = torch.randn(B, H, W, C, generator=g, device=DEVICE)
+    w32 = torch.randn(3, 3, C, K, generator=g, device=DEVICE) / 34
+    F = torch.nn.functional
+    out = {}
+    for precision, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+        x, w = x32.to(dt), w32.to(dt)
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        wc = w.permute(3, 2, 0, 1).contiguous()
+        ref = F.conv2d(xc, wc, padding=1).permute(0, 2, 3, 1)
+        res = {"conv2d_ms": cuda_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                    iters=5)}
+        for name, fn in conv_gemm.CONV3X3_IMPLS.items():
+            got = fn(x, w)
+            res[f"{name}_err"] = check_close(
+                f"13d {name} {precision} against F.conv2d", got, ref,
+                **CONV_TOL[precision])
+            res[f"{name}_ms"] = cuda_ms(lambda: fn(x, w), iters=5)
+        log(f"  [{card}] {precision}: taps {res['taps_ms']:.3f} ms, im2col "
+            f"{res['im2col_ms']:.3f} ms, F.conv2d {res['conv2d_ms']:.3f} ms "
+            f"(NCHW, cuDNN); max |err| taps {res['taps_err']:.3e}, im2col "
+            f"{res['im2col_err']:.3e}")
+        out[precision] = res
+    return out
+
+
+def phase_render(card, work: Path):
+    """13e: the demo's --render: with matplotlib, the first sample drawn;
+    without it, the refusal before any model is built."""
+    args = demo.build_parser().parse_args([
+        "--render", "--num_samples", "1", "--device", DEVICE, "--out",
+        str(work / "render13")])
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        built = []
+        real = demo.GestureTransformer
+        demo.GestureTransformer = lambda *a, **k: built.append(1)
+        try:
+            demo.main(args)
+        except RuntimeError as exc:
+            if "matplotlib" not in str(exc) or built:
+                raise SystemExit(f"13e: the refusal is wrong: {exc}")
+            log(f"  no matplotlib here: --render refused before any model "
+                f"was built ({exc})")
+            return {"matplotlib": False}
+        finally:
+            demo.GestureTransformer = real
+        raise SystemExit("13e: --render ran without matplotlib")
+    t0 = time.perf_counter()
+    summary = demo.main(args)
+    video = Path(summary["video"])
+    if not video.exists() or video.stat().st_size == 0:
+        raise SystemExit(f"13e: no video at {video}")
+    log(f"  rendered the demo's first sample: {video.name}, "
+        f"{video.stat().st_size} bytes, {time.perf_counter() - t0:.1f} s")
+    return {"matplotlib": True, "video_bytes": video.stat().st_size}
+
+
+def phase_orbax(card, work: Path, counts, serving):
+    """Phase 13, in the work directory of phases 6-12."""
+    t0 = time.perf_counter()
+    out, walls, adam = {}, {}, {}
+
+    def full():
+        res, adam["generator"] = phase_orbax_full(card, work, counts,
+                                                  serving)
+        return res
+
+    parts = (
+        ("full", "13a: phase 4's weights as the JAX package's orbax "
+         "checkpoints, read by the serving modules, the eval CLI and the "
+         "demo", full),
+        ("jax", "13b: the checkpoints the JAX package wrote "
+         "(tests/fixtures/orbax_jax) against JAX's outputs",
+         lambda: phase_orbax_jax(card)),
+        ("convert", "13c: convert_checkpoint, then the GAN trainer "
+         "--resume from it and from 13a's orbax generator",
+         lambda: phase_convert(card, work, work / "orbax13",
+                               adam.pop("generator"))),
+        ("conv_gemm", "13d: the 3x3 conv as GEMMs at stage 3, B "
+         f"{CONV_SHAPE[0]}", lambda: phase_conv_gemm(card)),
+        ("render", "13e: the demo's --render", lambda: phase_render(
+            card, work)))
+    for name, title, run in parts:
+        log(f"phase {title}")
+        t = time.perf_counter()
+        out[name] = run()
+        walls[name] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    log(f"  [{card}] phase 13 wall {out['wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
@@ -3055,9 +3535,14 @@ def main(argv) -> int:
 
     log("phase 1: build")
     t0 = time.perf_counter()
+    # g++ builds the zstd decoder while nvcc builds the kernels
+    host_build = threading.Thread(target=zstd_mod.native)
+    host_build.start()
     cuda_lib.build_all()
-    log(f"  nvcc, {len(cuda_lib.SOURCES)} sources in parallel: "
-        f"{time.perf_counter() - t0:.1f} s")
+    host_build.join()
+    zstd_mod.native()  # raises here if its build failed
+    log(f"  nvcc, {len(cuda_lib.SOURCES)} sources in parallel, and g++ "
+        f"for csrc/zstd.cpp: {time.perf_counter() - t0:.1f} s")
     for name, text in cuda_lib.build_logs.items():
         (args.out / f"nvcc_{name}.log").write_text(text)
 
@@ -3085,6 +3570,7 @@ def main(argv) -> int:
         dp = phase_dp(card, work, counts, evals)
         migrate = phase_migrate(card, work, counts, store)
         zoo = phase_zoo(card, work, gen, counts, serving)
+        orbax_ckpt = phase_orbax(card, work, counts, serving)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -3094,6 +3580,7 @@ def main(argv) -> int:
     detail = {"card": card, "serving": serving, "eval": evals,
               "train": train, "aux": aux, "classifier": kfold, "store": store,
               "data_parallel": dp, "migration": migrate, "zoo": zoo,
+              "orbax": orbax_ckpt,
               "se_stage": se_detail, "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     keys = ("ms_per_step", "samples_per_s", "peak_bytes", "wall_s")
@@ -3120,7 +3607,13 @@ def main(argv) -> int:
                                  zoo["cvae"].items() if k != "hand"},
             "baselines_ms": {k: v["ms_per_forward"] for k, v in
                              zoo["baselines"].items()
-                             if "ms_per_forward" in v}}}))
+                             if "ms_per_forward" in v}},
+        "orbax": {"wall_s": orbax_ckpt["wall_s"], **{
+            p: {k: orbax_ckpt["full"][p][k] for k in (
+                "read_s", "read_mb_per_s", "zstd_mb_per_s",
+                "ms_per_forward")} for p in ("float32", "bfloat16")},
+            "jax_written_zstd_mb_per_s": orbax_ckpt["jax"]["zstd_mb_per_s"],
+            "conv_gemm": orbax_ckpt["conv_gemm"]}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

@@ -9,8 +9,15 @@ takes the hand-written CUDA mel kernel (the name of the JAX demo's Pallas
 frontend), `xla` the plain PyTorch mel. Each diverse sample is its own
 batch-one forward, as the JAX demo's vmap over keys makes it: TMMemory mixes
 the rows of a batch, so stacking the samples would change them. Checkpoints
-are state_dict files in the reference PyTorch layout (`torch.save`), read by
-`utils.weights.load_reference_checkpoint`.
+are state_dict files in the reference PyTorch layout (`torch.save`), the
+port's trainers' checkpoint directories, or the JAX package's orbax
+checkpoints (a `checkpoint_iteration<N>` directory or the directory holding
+them), read by `utils.weights.load_reference_checkpoint`.
+
+`--render` draws the first sample's first 9 direction vectors as a stick
+figure (utils/render.py): an mp4 with the audio when ffmpeg is on the path,
+else a gif. It needs matplotlib; without it the demo stops before it builds
+a model, where the JAX demo fails only after generating.
 
 Run from the command line with `--precision float32` on the card, the demo
 turns TF32 off for its process (`core.device.fp32_exact_on_cuda`) so that the
@@ -35,7 +42,7 @@ from ..models.cvae import EmotionCVAEv3
 from ..models.generator import GestureTransformer
 from ..ops.fused_mel import extract_melspectrogram
 from ..ops.mel import calc_spectrogram_length_from_motion_length
-from ..utils.weights import load_reference_checkpoint
+from ..utils.weights import jax_table, load_reference_checkpoint
 
 
 def build_parser():
@@ -95,9 +102,9 @@ def main(args=None, noise=None):
     if args is None:
         args = build_parser().parse_args()
     if args.render:
-        raise NotImplementedError(
-            "--render needs utils/render.py, which this port does not have "
-            "yet; run without --render")
+        from ..utils.render import require_matplotlib
+
+        require_matplotlib()
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
@@ -115,10 +122,13 @@ def main(args=None, noise=None):
                              spec_len=spec_len, device=device)
     vae = EmotionCVAEv3(device=device)
     if args.checkpoints_folder_path:
-        load_reference_checkpoint(gen, args.checkpoints_folder_path)
+        load_reference_checkpoint(gen, args.checkpoints_folder_path,
+                                  table=jax_table("generator", n_layers=len(
+                                      gen.encoder.layer_stack)))
         logging.info("loaded generator checkpoint")
     if args.cvae_checkpoint:
-        load_reference_checkpoint(vae, args.cvae_checkpoint)
+        load_reference_checkpoint(vae, args.cvae_checkpoint,
+                                  table=jax_table("cvae"))
         logging.info("loaded CVAE checkpoint")
     if not (args.checkpoints_folder_path or args.cvae_checkpoint):
         logging.warning("no checkpoints given — random weights (pipeline "
@@ -160,6 +170,14 @@ def main(args=None, noise=None):
                "pairwise_sample_distance": round(pairwise, 4),
                "gen_seconds": round(dt, 3)}
     print(json.dumps(summary))
+
+    if args.render:
+        from ..utils.render import create_video_and_save
+
+        # the first 9 direction vectors as a 10-joint stick figure
+        summary["video"] = create_video_and_save(
+            args.out, 0, "demo", 0, None, poses[0][:, :27], np.zeros(27),
+            f"demo ({args.emotion})", audio=wave)[0]
     return summary
 
 

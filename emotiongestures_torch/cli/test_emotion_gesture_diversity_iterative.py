@@ -28,10 +28,13 @@ noise, pooled into the diversity estimate only.
 
 Runs on the card unless --device cpu. The checkpoint flags take
 reference-layout .pth files (a `module.` prefix and a `gen_dict` wrapper are
-stripped) or the checkpoint directories of the port's trainers (the newest
-`checkpoint_iteration<N>.pt`; for the generator, `<path>` or
-`<path>/generator`, so --checkpoints_folder_path may name the GAN trainer's
---model_save_path); without one, a net keeps its seeded random weights.
+stripped), the checkpoint directories of the port's trainers (the newest
+`checkpoint_iteration<N>.pt`), or the JAX package's orbax checkpoints (a
+`checkpoint_iteration<N>` directory, or the directory holding them: the
+newest; read by utils/orbax.py without jax or tensorstore). For the
+generator, `<path>` or `<path>/generator`, so --checkpoints_folder_path may
+name either package's GAN --model_save_path. Without one, a net keeps its
+seeded random weights.
 
 --num_devices N evaluates data-parallel over N processes on this host, one
 per card (0, the default, is every visible card, degraded to the largest
@@ -45,9 +48,8 @@ the global batch. Rank 0 returns the summary of a one-process run; the
 other ranks return only their `timings`. Under the launcher `main` returns
 rank 0's summary.
 
-Not ported yet, and refused with an error: the JAX package's orbax
-checkpoint directories, and --model_parallel > 1 (tensor parallelism,
-ROADMAP.md queue 1, item 6b). Run from the command line with --precision
+Not ported yet, and refused with an error: --model_parallel > 1 (tensor
+parallelism, ROADMAP.md queue 1, item 6b). Run from the command line with --precision
 float32 on the card, the CLI turns TF32 off for its process; `main()`
 called from other code leaves that switch to its caller.
 """
@@ -81,7 +83,7 @@ from ..models.generator import GestureTransformer
 from ..models.skeleton_classifier import SkeletonTransformer
 from ..parallel import distributed, mesh
 from ..utils.logging import set_logger
-from ..utils.weights import load_reference_checkpoint
+from ..utils.weights import jax_table, load_reference_checkpoint
 from .presets import EVAL_FAST, add_preset_flag, apply_preset
 
 N_WORDS_SYNTHETIC = 64
@@ -200,11 +202,13 @@ class EvalNets:
     loaded: dict            # net -> the checkpoint file read, or None
 
 
-def _load(module, path, name, allow_pickle, subdir=None):
-    """Load `path` into `module`; returns the file read, or None (random
-    weights) without a path."""
+def _load(module, path, name, allow_pickle, table, subdir=None):
+    """Load `path` into `module` (`table`: its JAX weight table, for an
+    orbax checkpoint); returns what was read, or None (random weights)
+    without a path."""
     if path:
-        read = load_reference_checkpoint(module, path, allow_pickle, subdir)
+        read = load_reference_checkpoint(module, path, allow_pickle, subdir,
+                                         table)
         logging.info("loaded %s checkpoint from %s", name, read)
         return str(read)
     logging.warning("no %s checkpoint: using randomly initialised "
@@ -231,12 +235,16 @@ def build_models(args, n_words: int, device) -> EvalNets:
     vae = EmotionCVAEv3(feat_dim=args.d_model, device=device)
     loaded = {
         "generator": _load(gen, args.checkpoints_folder_path, "generator",
-                           args.allow_pickle, subdir="generator"),
-        "fgd": _load(fgd, args.fgd_checkpoint, "FGD", args.allow_pickle),
+                           args.allow_pickle, jax_table(
+                               "generator", n_layers=args.gen_layers),
+                           subdir="generator"),
+        "fgd": _load(fgd, args.fgd_checkpoint, "FGD", args.allow_pickle,
+                     jax_table("fgd")),
         "skeleton": _load(skeleton, args.skeleton_checkpoint,
-                          "skeleton classifier", args.allow_pickle),
+                          "skeleton classifier", args.allow_pickle,
+                          jax_table("skeleton", n_layers=3)),
         "cvae": _load(vae, args.cvae_checkpoint, "emotion CVAE",
-                      args.allow_pickle),
+                      args.allow_pickle, jax_table("cvae")),
     }
     for net in (gen, fgd, skeleton, vae):
         distributed.broadcast_module(net)

@@ -54,6 +54,7 @@ from ..train import classifier
 from ..utils.checkpoint import (GracefulShutdown, load_checkpoint,
                                 save_checkpoint)
 from ..utils.logging import set_logger
+from ..utils.weights import jax_table
 from .presets import CLASSIFIER_FAST, add_preset_flag, apply_preset
 
 
@@ -199,7 +200,8 @@ def main(args=None):
         template = classifier.create_state(
             args.seed, lr=args.lr,
             spec_shape=full[0]["spectrogram"].shape, device=device)
-        state, ok = load_checkpoint(template, save_dir)
+        state, ok = load_checkpoint(template, save_dir,
+                                    table=jax_table("emotion_net"))
         mesh.same_on_ranks(state.step, "the resumed step")
         if ok and progress_path.exists():
             fold = json.loads(progress_path.read_text())["fold"]

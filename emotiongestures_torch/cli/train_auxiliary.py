@@ -74,7 +74,9 @@ from ..train.gan import step_key
 from ..utils.checkpoint import (AsyncSaver, GracefulShutdown, latest_step,
                                 load_checkpoint, load_model)
 from ..utils.logging import set_logger
+from ..utils.orbax import find_checkpoint
 from ..utils.profiling import StepTimer, guard_finite
+from ..utils.weights import jax_table
 from .test_emotion_gesture_diversity_iterative import N_WORDS_SYNTHETIC
 from .train_emotion_gesture import add_multihost_flags
 
@@ -173,10 +175,12 @@ def _emotion_features(args, device):
     if args.generator_checkpoint:
         path = args.generator_checkpoint
         found = [d for d in (path, os.path.join(path, "generator"))
-                 if latest_step(d) is not None]
+                 if latest_step(d) is not None
+                 or find_checkpoint(d) is not None]
         if found:
             logging.info("loaded generator checkpoint for features: %s",
-                         load_model(gen, found[0]))
+                         load_model(gen, found[0], table=jax_table(
+                             "generator", n_layers=args.gen_layers)))
         else:
             logging.warning("no generator checkpoint in %s or %s/generator: "
                             "CVAE features come from a randomly "
@@ -192,6 +196,16 @@ def _emotion_features(args, device):
                    batch["pose_seq"][:, :10])[1]
 
     return features
+
+
+def _table(args):
+    """The JAX weight table of --model, for orbax checkpoints."""
+    if args.model == "skeleton":
+        return jax_table("skeleton", n_layers=3)
+    if args.model == "cvae":
+        return jax_table({3: "cvae", 2: "cvae_v2", 1: "cvae_v1"}[
+            args.cvae_version])
+    return jax_table(args.model)
 
 
 def _make_state(args, seed, device):
@@ -262,7 +276,7 @@ def main(args=None):
 
     save_dir = os.path.join(args.model_save_path, args.model)
     if args.resume:
-        state, ok = load_checkpoint(state, save_dir)
+        state, ok = load_checkpoint(state, save_dir, table=_table(args))
         if ok:
             logging.info("resumed %s from step %d", args.model, state.step)
         mesh.same_on_ranks(state.step, "the resumed step")

@@ -69,6 +69,7 @@ from ..train import gan
 from ..utils.checkpoint import AsyncSaver, GracefulShutdown, load_checkpoint
 from ..utils.logging import MetricLogger, set_logger
 from ..utils.profiling import StepTimer, guard_finite, trace
+from ..utils.weights import jax_table
 from .presets import GAN_TRAIN_FAST, apply_preset
 from .test_emotion_gesture_diversity_iterative import (
     N_WORDS_SYNTHETIC,
@@ -212,8 +213,10 @@ def main(args=None):
     gen_dir = os.path.join(args.model_save_path, "generator")
     disc_dir = os.path.join(args.model_save_path, "discriminator")
     if args.resume:
-        gen_state, ok = load_checkpoint(gen_state, gen_dir)
-        disc_state, _ = load_checkpoint(disc_state, disc_dir)
+        gen_state, ok = load_checkpoint(gen_state, gen_dir, table=jax_table(
+            "generator", n_layers=args.gen_layers, variant=args.variant))
+        disc_state, _ = load_checkpoint(
+            disc_state, disc_dir, table=jax_table("motion_discriminator"))
         if ok:
             logging.info("resumed from step %d", gen_state.step)
         mesh.same_on_ranks(gen_state.step, "the resumed step")

@@ -55,46 +55,67 @@ _lock = threading.Lock()
 _codec: ctypes.CDLL | None = None
 
 
-def codec_target() -> Path:
+def shared_target(src: Path, stem: str) -> Path:
     """The shared library's path for this source and these flags."""
-    digest = hashlib.sha256(CODEC_SRC.read_bytes()
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libegtp_codec-{digest}.so"
+    return BUILD_DIR / f"{stem}-{digest}.so"
 
 
-def build_codec() -> Path:
-    """Compile csrc/codec.cpp with g++ unless it is built; raise with the
-    compiler's output if that fails."""
-    target = codec_target()
+def build_shared(src: Path, stem: str) -> Path:
+    """Compile the C++ source `src` with g++ into `_build/<stem>-<hash>.so`
+    unless it is built; raise with the compiler's output if that fails. The
+    library is written under a temporary name and renamed, so a concurrent
+    process never loads a half-written file."""
+    target = shared_target(src, stem)
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the port's batch gather "
-                           "csrc/codec.cpp is built with g++ at first use")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(CODEC_SRC)],
+        raise RuntimeError(f"g++ not found: the port builds csrc/{src.name} "
+                           "with g++ at first use")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for csrc/codec.cpp:\n{proc.stdout}"
+        raise RuntimeError(f"g++ failed for csrc/{src.name}:\n{proc.stdout}"
                            f"{proc.stderr}")
     os.replace(tmp, target)
     return target
 
 
+def load_shared(src: Path, stem: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load `src` under the build lock, with each
+    export's (argtypes, restype) from `signatures`."""
+    with _lock:
+        lib = ctypes.CDLL(str(build_shared(src, stem)))
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def codec_target() -> Path:
+    """The batch gather's shared library path."""
+    return shared_target(CODEC_SRC, "libegtp_codec")
+
+
+def build_codec() -> Path:
+    """Compile csrc/codec.cpp with g++ unless it is built; raise with the
+    compiler's output if that fails."""
+    return build_shared(CODEC_SRC, "libegtp_codec")
+
+
 def native_codec() -> ctypes.CDLL:
     """The loaded batch gather, built first if needed."""
     global _codec
-    with _lock:
-        if _codec is None:
-            lib = ctypes.CDLL(str(build_codec()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _codec = lib
+    if _codec is None:
+        _codec = load_shared(CODEC_SRC, "libegtp_codec", {
+            name: (argtypes, ctypes.c_int)
+            for name, argtypes in _SIGNATURES.items()})
     return _codec
 
 

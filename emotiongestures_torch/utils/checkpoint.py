@@ -16,6 +16,10 @@ directory (a lock file with its pid and /proc start-time token). Under data
 parallelism only the primary process writes (a save on another rank
 raises before it reaches the lock), every rank waits at a barrier after
 each save, and on resume every rank reads the same file.
+
+`load_checkpoint` and `load_model` also read the JAX package's orbax
+`checkpoint_iteration<N>` directories (utils/orbax.py) where a directory
+holds no `.pt` file, given the module's weight table.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from pathlib import Path
 import torch
 
 from ..parallel.distributed import is_primary, process_index
+from .orbax import find_checkpoint
 
 _NAME = re.compile(r"checkpoint_iteration(\d+)\.pt")
 _LOCK = ".egtp_writer.lock"
@@ -304,30 +309,51 @@ def _read(directory, step: int) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_model(module, directory, step: int | None = None) -> Path:
+def load_model(module, directory, step: int | None = None,
+               table=None) -> Path:
     """Load the model of a checkpoint into `module` (strict=True), the
-    newest when `step` is None; no optimizer state is read. Returns the
-    file. For a frozen or evaluated network."""
+    newest when `step` is None; no optimizer state is read. Returns what
+    was read. For a frozen or evaluated network. A directory without the
+    port's `.pt` files may hold the JAX package's orbax checkpoints, whose
+    params and batch_stats load through `table` (utils.weights.jax_table)."""
     directory = Path(directory).absolute()
     if step is None:
         step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint in {directory}")
-    module.load_state_dict(_read(directory, step)["model"], strict=True)
-    return directory / f"checkpoint_iteration{step}.pt"
+    if step is not None and (directory / f"checkpoint_iteration{step}.pt"
+                             ).exists():
+        module.load_state_dict(_read(directory, step)["model"], strict=True)
+        return directory / f"checkpoint_iteration{step}.pt"
+    found = find_checkpoint(directory, step)
+    if found is None:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    from .weights import load_orbax_model  # weights imports this module
+
+    load_orbax_model(module, found, table)
+    return found
 
 
-def load_checkpoint(state, directory, step: int | None = None):
+def load_checkpoint(state, directory, step: int | None = None, table=None):
     """Restore a checkpoint into `state` in place (the newest when `step`
     is None). Returns (state, loaded?). The model's state_dict loads with
     strict=True; the optimizer's loads when it matches the state's
     optimizer, else the fresh one is kept with a warning (a checkpoint
-    read with another optimizer config)."""
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
+    read with another optimizer config).
+
+    A directory without the port's `.pt` files may hold the JAX package's
+    orbax checkpoints (a trainer's `--resume` after training on the TPU):
+    the step, the params and batch_stats through `table`
+    (utils.weights.jax_table), and optax's Adam moments and count as the
+    torch Adam's exp_avg, exp_avg_sq and step. An opt_state that does not
+    match the optimizer leaves it fresh, with a warning, as the JAX
+    package's load_checkpoint does."""
+    pt_step = latest_step(directory) if step is None else step
+    if pt_step is None or not (Path(directory).absolute() /
+                               f"checkpoint_iteration{pt_step}.pt").exists():
+        found = find_checkpoint(directory, step)
+        if found is None:
             return state, False
-    raw = _read(directory, step)
+        return _load_orbax_state(state, found, table), True
+    raw = _read(directory, pt_step)
     state.module.load_state_dict(raw["model"], strict=True)
     state.step = int(raw["step"])
     try:
@@ -337,3 +363,22 @@ def load_checkpoint(state, directory, step: int | None = None):
             "checkpoint optimizer state does not match - keeping the fresh "
             "optimizer state (model weights and step restored)")
     return state, True
+
+
+def _load_orbax_state(state, path: Path, table):
+    from .weights import adam_state_from_jax, load_orbax_model
+
+    tree = load_orbax_model(state.module, path, table, full=True)
+    state.step = int(tree["step"])
+    variables = {"params": tree["params"],
+                 "batch_stats": tree.get("batch_stats") or {}}
+    try:
+        state.optimizer.load_state_dict(adam_state_from_jax(
+            state.optimizer, state.module, variables,
+            tree.get("opt_state"), table))
+    except (ValueError, KeyError, TypeError) as exc:
+        logging.getLogger(__name__).warning(
+            "checkpoint opt_state does not match the optimizer (%s) - "
+            "keeping the fresh optimizer state (params, batch_stats and "
+            "step restored)", exc)
+    return state

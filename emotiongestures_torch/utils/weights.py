@@ -7,8 +7,11 @@
 "batch_stats": ...}` trees (nested mappings of arrays; anything `np.asarray`
 reads) and return state_dicts in the reference PyTorch layout, which is the
 port's own, so `load_state_dict(strict=True)` checks the structure.
-`load_reference_checkpoint` reads such a state_dict from a `.pth` file, or
-the model of the newest checkpoint in a directory the port's trainers wrote.
+`load_reference_checkpoint` reads such a state_dict from a `.pth` file, the
+model of the newest checkpoint in a directory the port's trainers wrote, or
+the params and batch_stats of an orbax checkpoint the JAX package wrote
+(utils/orbax.py) through the table `jax_table` names; `adam_state_from_jax`
+maps that checkpoint's optax Adam moments onto a torch Adam.
 
 A declarative (torch_key, jax_path, kind) table drives it. This is the
 port's own copy of the tables of emotiongestures_tpu/utils/torch_port.py
@@ -46,10 +49,12 @@ from __future__ import annotations
 
 import pickle
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
 
+from . import orbax
 from .checkpoint import latest_step, load_model
 
 TO_TORCH = {
@@ -841,9 +846,104 @@ def load_reference_state(module, state: dict) -> None:
     module.load_state_dict({k: state[k] for k in own}, strict=True)
 
 
+def jax_table(model: str, **geometry) -> Callable[[dict], list]:
+    """The weight table of one of the models the JAX CLIs save, as a
+    function of the JAX variables (the generator's TCN table reads them):
+    "generator" (n_layers, tcn_layers, variant), "cvae" (v3), "cvae_v1",
+    "cvae_v2", "fgd", "skeleton" (n_layers), "emotion_net" and
+    "motion_discriminator" (n_layers)."""
+    fixed = {"cvae": cvae_v3_table, "cvae_v1": cvae_v1_table,
+             "cvae_v2": cvae_v2_table, "fgd": fgd_ae_table,
+             "emotion_net": emotion_net_table}
+    if model == "generator":
+        return lambda variables: generator_table(variables, **geometry)
+    if model == "skeleton":
+        return lambda variables: skeleton_classifier_table(**geometry)
+    if model == "motion_discriminator":
+        return lambda variables: motion_discriminator_table(**geometry)
+    if model in fixed and not geometry:
+        return lambda variables: fixed[model]()
+    raise ValueError(f"no JAX weight table for {model!r} with {geometry}")
+
+
+def load_jax_variables(module, variables, table) -> None:
+    """Load the JAX `{"params", "batch_stats"}` tree into `module` through
+    `table(variables)`, with strict=True."""
+    module.load_state_dict(state_from_table(variables, table(variables)),
+                           strict=True)
+
+
+def _adam_state(opt_state):
+    """optax's scale_by_adam state ({count, mu, nu}) inside a restored
+    opt_state (an optax chain is a list; empty states are None), or None."""
+    if isinstance(opt_state, dict):
+        if set(opt_state) == {"count", "mu", "nu"}:
+            return opt_state
+        children = opt_state.values()
+    elif isinstance(opt_state, (list, tuple)):
+        children = opt_state
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_jax(optimizer, module, variables, opt_state,
+                        table) -> dict:
+    """A state_dict for the torch Adam `optimizer` of `module`'s parameters
+    from optax's scale_by_adam state in `opt_state`: mu to exp_avg, nu to
+    exp_avg_sq, count to step, each moment through the parameter's table
+    entry. Raises KeyError or ValueError where the trees do not match."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no scale_by_adam state (count, mu, nu) in opt_state")
+    entries = {key: (path, kind) for key, path, kind in table(variables)}
+    names = {id(p): n for n, p in module.named_parameters()}
+    count = float(np.asarray(adam["count"]))
+    sd = optimizer.state_dict()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {}
+    for index, param in enumerate(params):
+        path, kind = entries[names[id(param)]]
+        if path[0] != "params":
+            raise KeyError(f"{names[id(param)]} is not a parameter in JAX")
+        moments = {}
+        for torch_name, jax_name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            m = _tensor(TO_TORCH[kind](np.asarray(
+                _get(adam[jax_name], path[1:]))))
+            if tuple(m.shape) != tuple(param.shape):
+                raise ValueError(f"{jax_name} of {names[id(param)]} has "
+                                 f"shape {tuple(m.shape)}, the parameter "
+                                 f"{tuple(param.shape)}")
+            moments[torch_name] = m
+        state[index] = {"step": torch.tensor(count), **moments}
+    sd["state"] = state
+    return sd
+
+
+def load_orbax_model(module, path: Path, table, full: bool = False) -> dict:
+    """Load the params and batch_stats of the orbax checkpoint `path` into
+    `module` through `table`; returns the restored tree (all of it, the
+    optimizer state too, when `full`)."""
+    if table is None:
+        raise ValueError(
+            f"{path} is an orbax checkpoint of the JAX package: reading it "
+            "needs the module's weight table (utils.weights.jax_table)")
+    tree = orbax.restore(path, only=None if full else ("params",
+                                                      "batch_stats"))
+    variables = {"params": tree["params"],
+                 "batch_stats": tree.get("batch_stats") or {}}
+    load_jax_variables(module, variables, table)
+    return tree
+
+
 def load_reference_checkpoint(module, path, allow_pickle: bool = False,
-                              subdir: str | None = None) -> Path:
-    """Load weights into `module` from `path` and return the file read.
+                              subdir: str | None = None,
+                              table=None) -> Path:
+    """Load weights into `module` from `path` and return what was read.
 
     A file is a reference-layout `.pth`: a plain state_dict, or the
     reference's rich dict whose `gen_dict` holds it
@@ -852,23 +952,27 @@ def load_reference_checkpoint(module, path, allow_pickle: bool = False,
     pickles other objects loads only with `allow_pickle=True`, since
     unpickling runs code from the file.
 
-    A directory is one of the port's trainers' checkpoint directories: the
-    newest `checkpoint_iteration<N>.pt` in `path`, else in `path/subdir`
-    (the GAN trainer writes its generator under `<model_save_path>/
-    generator`), loads its "model" state_dict with strict=True. A directory
-    without one is the JAX package's orbax format, which the port does not
-    read."""
+    A directory is tried as itself, then as `path/subdir` (the GAN
+    trainers write their generator under `<model_save_path>/generator`).
+    In each: the newest `checkpoint_iteration<N>.pt` of the port's
+    trainers loads its "model" state_dict; else an orbax checkpoint of the
+    JAX package (the directory itself, or its newest
+    `checkpoint_iteration<N>`) loads its params and batch_stats through
+    `table`, the module's `jax_table`, with strict=True."""
     p = Path(path)
     if p.is_dir():
         for cand in [p] + ([p / subdir] if subdir else []):
             step = latest_step(cand)
             if step is not None:
                 return load_model(module, cand, step)
+            found = orbax.find_checkpoint(cand)
+            if found is not None:
+                load_orbax_model(module, found, table)
+                return found
         raise ValueError(
-            f"{p} is a directory without checkpoint_iteration<N>.pt files: "
-            "orbax checkpoints of the JAX package are not read by the "
-            "PyTorch port; give a reference-layout .pth state_dict file or "
-            "a directory the port's trainers wrote")
+            f"{p} holds neither checkpoint_iteration<N>.pt files of the "
+            "port's trainers nor an orbax checkpoint of the JAX package"
+            + (f" (nor does {p / subdir})" if subdir else ""))
     try:
         raw = torch.load(p, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as exc:

@@ -1,7 +1,9 @@
 """Boundaries of the port: it stands without JAX and the JAX package (and
 without `flatbuffers`, `lmdb` and `pyarrow`, which the migration path does
-not need), its entry points default to the card, and a CPU tensor takes a
-kernel's plain version without counting a launch."""
+not need, and `orbax`, `tensorstore` and `zstandard`, which reading the JAX
+package's checkpoints does not need), its entry points default to the
+card, and a CPU tensor takes a kernel's plain version without counting a
+launch."""
 import ast
 import subprocess
 import sys
@@ -14,7 +16,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "emotiongestures_torch"
 FORBIDDEN = ("jax", "flax", "emotiongestures_tpu", "flatbuffers", "lmdb",
-             "pyarrow")
+             "pyarrow", "orbax", "tensorstore", "zstandard")
 
 
 def _port_sources():
@@ -23,12 +25,13 @@ def _port_sources():
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke, import in a process where
-    jax, flax, emotiongestures_tpu, flatbuffers, lmdb and pyarrow cannot be
-    imported."""
+    jax, flax, emotiongestures_tpu, flatbuffers, lmdb, pyarrow, orbax,
+    tensorstore and zstandard cannot be imported."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'jaxlib', 'flax', 'emotiongestures_tpu',\n"
-        "             'flatbuffers', 'lmdb', 'pyarrow'):\n"
+        "             'flatbuffers', 'lmdb', 'pyarrow', 'orbax',\n"
+        "             'tensorstore', 'zstandard'):\n"
         "    sys.modules[name] = None\n"
         "import emotiongestures_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
@@ -41,6 +44,29 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_orbax_checkpoint_reads_without_jax_orbax_tensorstore_zstandard():
+    """The committed checkpoint the JAX package wrote restores, and loads
+    into the port's CVAE, in a process where none of jax, flax, orbax,
+    tensorstore, zstandard or emotiongestures_tpu can be imported."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'emotiongestures_tpu',\n"
+        "             'orbax', 'tensorstore', 'zstandard'):\n"
+        "    sys.modules[name] = None\n"
+        "from emotiongestures_torch.models.cvae import EmotionCVAEv3\n"
+        "from emotiongestures_torch.utils import orbax, weights\n"
+        "d = 'tests/fixtures/orbax_jax/cvae'\n"
+        "tree, path = orbax.restore_checkpoint(d)\n"
+        "vae = EmotionCVAEv3(feat_dim=32, device='cpu')\n"
+        "weights.load_reference_checkpoint(vae, d,\n"
+        "                                  table=weights.jax_table('cvae'))\n"
+        "print(path.name, int(tree['step']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["checkpoint_iteration2", "2"]
 
 
 def _guarded_lmdb_imports(tree) -> set:
@@ -63,8 +89,9 @@ def _guarded_lmdb_imports(tree) -> set:
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_in_port(path):
-    """No import of jax, flax, emotiongestures_tpu, flatbuffers or pyarrow;
-    `lmdb` only behind data/store.py::_iter_lmdb's guard."""
+    """No import of jax, flax, emotiongestures_tpu, flatbuffers, pyarrow,
+    orbax, tensorstore or zstandard; `lmdb` only behind
+    data/store.py::_iter_lmdb's guard."""
     tree = ast.parse(path.read_text())
     guarded = _guarded_lmdb_imports(tree) \
         if path == PORT / "data" / "store.py" else set()
@@ -123,6 +150,7 @@ def test_entry_points_default_to_cuda():
     from emotiongestures_torch.models.emotion_net import DisNet, EmotionNet
     from emotiongestures_torch.train import classifier, cvae, fgd, skeleton
     from emotiongestures_torch.data.preprocessing import DataPreprocessor
+    from emotiongestures_torch.cli import convert_checkpoint as convert_cli
 
     calls = [
         lambda: GestureTransformer(n_words=8),
@@ -185,6 +213,13 @@ def test_entry_points_default_to_cuda():
         lambda: BeatAlignerV1().score_batch(
             np.zeros((1, 64000), np.float32), np.zeros((1, 60, 282)),
             device_frontend=True),
+        # the checkpoint converter; the demo reading an orbax checkpoint
+        # and rendering
+        lambda: convert_cli.main(convert_cli.build_parser().parse_args(
+            ["--kind", "fgd", "--input", "x.pth", "--output", "y"])),
+        lambda: demo.main(demo.build_parser().parse_args(
+            ["--out", "x", "--render", "--cvae_checkpoint",
+             str(REPO / "tests" / "fixtures" / "orbax_jax" / "cvae")])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -354,11 +389,14 @@ def test_fused_routing_rule():
     assert not MultiHeadAttention(2, 64, 32, 32).eval().can_fuse(x, x, None)
 
 
-def test_render_flag_raises_clearly():
+def test_render_flag_raises_clearly(monkeypatch):
+    """--render without matplotlib (the card's machine has none) stops
+    before the demo builds anything, naming matplotlib."""
     from emotiongestures_torch.cli import demo
 
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     args = demo.build_parser().parse_args(["--render", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="render"):
+    with pytest.raises(RuntimeError, match="render.*matplotlib"):
         demo.main(args)
 
 
