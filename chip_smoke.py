@@ -184,6 +184,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      without it the refusal before any model is built. Each part's wall
      and the phase's.
 
+ 14. tensor parallelism (`--model_parallel`), in the work directory:
+     14a kernel 1's partial-heads form at the flagship shapes (B 1024, L
+     60, d_model 512, 8 heads as 2 x 4), fp32 and bf16 weights: the two
+     head halves through `fused_attention_partial`, summed, then
+     `residual_layer_norm`, against the whole-heads kernel and the plain
+     version (ATTN_TOL), with two planted faults (one half's partial
+     dropped, the residual left out) that must fail; each launch's ms and
+     bound; 14b the eval on a 1 x 2 grid (two ranks on the card over
+     gloo; flagship widths, one eval_batch of 1024, fp32 with
+     --fused_attention and --preset fast): poses, skeleton logits and FGD
+     features against one process on the same batch and CVAE noise
+     (TP_EVAL_TOL), 6 partial and 6 epilogue launches per eval_batch per
+     rank, ms per eval_batch per rank; 14c the GAN
+     trainer's main on the 1 x 2 grid at its default width, fp32, batch
+     128: one step against one process (tests/test_parallel.py:376-393's
+     rule), --resume from the gathered checkpoint to step 3 on the grid
+     and in one process, no kernel launch, ms per step per rank; 14d a
+     2 x 2 grid (four ranks), two GAN steps at full width and one layer,
+     batch 16, dropout on, against one process: the data-group BatchNorm,
+     TMMemory and contrastive terms. The phase's wall.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 repository around it, the script fails before printing a result.
@@ -770,6 +791,8 @@ def phase_se_path(precision, gen, counts):
 
 def reset_counts():
     FA.launches = 0
+    FA.partial_launches = 0
+    FA.residual_launches = 0
     FM.launches = 0
     FS.launches = 0
 
@@ -1997,12 +2020,16 @@ def dp_gan_steps(fields, batch, broadcast=True):
     return cfg, gs, ds, metrics, ms
 
 
-def dp_errors(ref, got, tol):
+def dp_errors(ref, got, tol, steps=DP_STEPS):
     """The worst readings of tests/test_parallel.py's criteria between a
-    one-process run and rank 0's, and the list of violations."""
+    one-process run and rank 0's after `steps` steps, and the list of
+    violations. A run is (cfg, G, D, metrics per step, ms): G and D as
+    train states or state_dicts."""
     (loss_tol, state_tol), bad = tol, []
     cfg, g0, d0, m0, _ = ref
     _, g1, d1, m1, _ = got
+    g0, d0, g1, d1 = (s if isinstance(s, dict) else s.module.state_dict()
+                      for s in (g0, d0, g1, d1))
     rel = []
     for step, rtol in enumerate(loss_tol):
         worst = 0.0
@@ -2012,11 +2039,10 @@ def dp_errors(ref, got, tol):
             if abs(a - b) > 1e-5 + rtol * abs(a):
                 bad.append(f"step {step} {k}: {a} vs {b}")
         rel.append(worst)
-    quantum = DP_STEPS * 2 * cfg.lr
+    quantum = steps * 2 * cfg.lr
     state_max, n_out, n_tot = 0.0, 0, 0
-    for net, (s0, s1) in {"G": (g0, g1), "D": (d0, d1)}.items():
-        sd1 = s1.module.state_dict()
-        for name, want in s0.module.state_dict().items():
+    for net, (s0, sd1) in {"G": (g0, g1), "D": (d0, d1)}.items():
+        for name, want in s0.items():
             diff = (sd1[name].double() - want.double()).abs()
             state_max = max(state_max, float(diff.max()))
             if float(diff.max()) >= state_tol:
@@ -3514,6 +3540,436 @@ def phase_orbax(card, work: Path, counts, serving):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor parallelism, a data x model grid of ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_MODEL = 2  # model ranks of 14a-14c: the flagship's 8 heads as 2 x 4
+
+
+def shard_rows(t, i, n):
+    k = t.shape[0] // n
+    return t[i * k:(i + 1) * k].contiguous()
+
+
+def shard_cols(t, i, n):
+    k = t.shape[1] // n
+    return t[:, i * k:(i + 1) * k].contiguous()
+
+
+def partial_operands(q, kv, wq, wk, wv, wo, i, n):
+    """Model index i's operands of kernel 1's partial form: its rows of
+    Wq, Wk, Wv and its columns of Wo."""
+    return (q, kv, shard_rows(wq, i, n), shard_rows(wk, i, n),
+            shard_rows(wv, i, n), shard_cols(wo, i, n))
+
+
+def residual_ln_work(part, q, s):
+    """The epilogue's least work: read the partial sum and the residual,
+    write the output (scale and bias once); ~8 FLOP per element."""
+    nbytes = (part.numel() * 4 + q.numel() * q.element_size()
+              + 2 * s.numel() * s.element_size() + part.numel() * 4)
+    ms, by = bound(8 * part.numel(), nbytes)
+    return {"bytes": nbytes, "bound_ms": ms, "bound_by": by}
+
+
+def phase_tp_kernel(card, gen):
+    """14a: kernel 1's partial-heads form at the flagship shapes, the heads
+    split over TP_MODEL model ranks in one process: the partials summed,
+    then the residual LayerNorm, against the whole-heads kernel and the
+    plain version, with two planted faults; the times of each launch."""
+    log(f"phase 14a: attention kernel's partial-heads form, B={BATCH}, "
+        f"L 60, d_model 512, 8 heads as {TP_MODEL} x {8 // TP_MODEL}")
+    B, D, H, dk, n = BATCH, 512, 8, 64, TP_MODEL
+    dev = torch.device("cuda")
+    out = {}
+    for label, w_dtype in (("fp32", torch.float32),
+                           ("act fp32, w bf16", torch.bfloat16)):
+        q = torch.randn(B, 60, D, generator=gen, device=dev)
+        ws = [(torch.randn(D, D, generator=gen, device=dev) / D ** 0.5)
+              .to(w_dtype) for _ in range(4)]
+        s = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(w_dtype)
+        b = (0.1 * torch.randn(D, generator=gen, device=dev)).to(w_dtype)
+        ops = [partial_operands(q, q, *ws, i, n) for i in range(n)]
+        reset_counts()
+        parts = [FA.fused_attention_partial(*o, n_head_local=H // n, d_k=dk)
+                 for o in ops]
+        got = FA.residual_layer_norm(sum(parts), q, s, b)
+        torch.cuda.synchronize()
+        if (FA.partial_launches, FA.residual_launches) != (n, 1):
+            raise SystemExit(f"14a: launches {FA.partial_launches}, "
+                             f"{FA.residual_launches}")
+        plain = FA.fused_attention_plain(q, q, *ws, s, b, n_head=H, d_k=dk)
+        whole = FA.fused_attention(q, q, *ws, s, b, n_head=H, d_k=dk)
+        errs = [check_close(f"{label}: partial {i} vs its plain version",
+                            parts[i], FA.fused_attention_partial_plain(
+                                *ops[i], n_head_local=H // n, d_k=dk),
+                            **ATTN_TOL) for i in range(n)]
+        errs.append(check_close(f"{label}: {n} partials + residual LN vs "
+                                "plain", got, plain, **ATTN_TOL))
+        whole_err = check_close(f"{label}: {n} partials + residual LN vs "
+                                "the whole-heads kernel", got, whole,
+                                **ATTN_TOL)
+        faults = {
+            "one half's partial dropped": FA.residual_layer_norm(
+                parts[0], q, s, b),
+            "the residual left out": FA.residual_layer_norm(
+                sum(parts), torch.zeros_like(q), s, b)}
+        fault_errs = {}
+        for fault, bad in faults.items():
+            err = (bad - plain).abs().max().item()
+            caught = not torch.allclose(bad, plain, **ATTN_TOL)
+            fault_errs[fault] = err
+            log(f"  planted fault ({label}, {fault}): max_abs_err "
+                f"{err:.3e}, {'caught' if caught else 'MISSED'}")
+            if not caught:
+                raise SystemExit(f"14a: the check misses {fault}")
+        psum = sum(parts)
+        work = attention_work(q, q, ops[0][2:], H // n, dk)
+        ln_work = residual_ln_work(psum, q, s)
+        F = torch.nn.functional
+        res = {
+            "partial_ms": [cuda_ms(lambda o=o: FA.fused_attention_partial(
+                *o, n_head_local=H // n, d_k=dk)) for o in ops],
+            "partial_plain_ms": cuda_ms(
+                lambda: FA.fused_attention_partial_plain(
+                    *ops[0], n_head_local=H // n, d_k=dk)),
+            "residual_ln_ms": cuda_ms(lambda: FA.residual_layer_norm(
+                psum, q, s, b)),
+            "residual_ln_plain_ms": cuda_ms(
+                lambda: FA.residual_layer_norm_plain(psum, q, s, b)),
+            # yardstick: F.layer_norm on the sum (two library calls)
+            "residual_ln_library_ms": cuda_ms(lambda: F.layer_norm(
+                psum + q, (D,), s.float(), b.float(), eps=1e-6)),
+            "whole_ms": cuda_ms(lambda: FA.fused_attention(
+                q, q, *ws, s, b, n_head=H, d_k=dk)),
+            "partial_bound_ms": work["bound_ms"],
+            "partial_bound_by": work["bound_by"],
+            "partial_gflop": work["flops"] / 1e9,
+            "residual_ln_bound_ms": ln_work["bound_ms"],
+            "residual_ln_bound_by": ln_work["bound_by"],
+            "residual_ln_bytes": ln_work["bytes"],
+            "max_abs_err": max(errs), "vs_whole_err": whole_err,
+            "planted_faults": fault_errs}
+        log(f"    [{card}] {label}: partial "
+            + ", ".join(f"{t:.3f}" for t in res["partial_ms"])
+            + f" ms (bound {work['bound_ms']:.3f}, {work['bound_by']}; "
+            f"{work['flops'] / 1e9:.1f} GFLOP each; plain "
+            f"{res['partial_plain_ms']:.3f}), residual LN "
+            f"{res['residual_ln_ms']:.3f} ms (bound "
+            f"{ln_work['bound_ms']:.3f}, {ln_work['bound_by']}; plain "
+            f"{res['residual_ln_plain_ms']:.3f}, add + F.layer_norm "
+            f"{res['residual_ln_library_ms']:.3f}); the whole-heads kernel "
+            f"{res['whole_ms']:.3f} ms")
+        out[label] = res
+        del q, ws, parts, got, plain, whole, faults, psum, ops
+    torch.cuda.empty_cache()
+    return out
+
+
+TP_TIMEOUT = 900  # seconds for the ranks of 14b-14c, and of 14d
+TP_EVAL_FIELDS = ("spectrogram", "text", "pose_seq", "eid_label")
+# 14b, the grid's eval_batch against one process on the same batch and
+# noise, both presets at tests/test_parallel.py:457-459's tolerance (under
+# --preset fast the CVAE's sample is fp32, so the generator's products
+# past it are fp32 with bf16 weights, and the grid reads as in fp32: 8.3e-7
+# of the poses on an H100 80GB HBM3 at 700 W, 7.7e-7 in fp32)
+TP_EVAL_TOL = {"fp32": dict(atol=2e-5, rtol=2e-4),
+               "fast": dict(atol=2e-5, rtol=2e-4)}
+# both fuse attention: the grid's sublayers run the partial-heads form, one
+# process's the whole-heads kernel
+TP_EVAL_RUNS = {"fp32": ["--preset", "parity", "--fused_attention"],
+                "fast": ["--preset", "fast"]}
+TP_STEP_SAMPLES = 128  # 14c: one step of the global batch per epoch
+TP_GRID_CFG = dict(n_layers=1, compute_dtype="float32",
+                   update_order="d_first")  # 14d, at full width
+TP_GRID_B = 16
+
+
+def tp_eval_rank():
+    """14b in one rank of a group of 2: per preset, the eval's four nets
+    whole (no grid) with rank 0's eval_batch of the global batch under
+    mesh.single_process(), then on a 1 x 2 grid (the nets cut by
+    build_models): the grid's eval_batch, its launches of the partial form
+    and the residual LayerNorm, and 3 timed calls."""
+    raw = next(SyntheticGestureDataset(n_samples=BATCH, seed=4).batches(
+        BATCH, shuffle=False, fields=TP_EVAL_FIELDS))
+    inputs = [torch.from_numpy(raw[k]).cuda() for k in TP_EVAL_FIELDS]
+    noise = torch.randn(BATCH, 32, generator=torch.Generator().manual_seed(
+        8)).cuda()
+    primary = distributed.is_primary()
+    out = {}
+    for preset, flags in TP_EVAL_RUNS.items():
+        args = eval_cli.build_parser().parse_args(["--device", "cuda",
+                                                   *flags])
+        eval_cli.apply_preset(args, eval_cli.build_parser(),
+                              eval_cli.EVAL_FAST)
+        distributed.set_grid(1)
+        nets = eval_cli.build_models(args, eval_cli.N_WORDS_SYNTHETIC,
+                                     torch.device("cuda"))
+        ref = None
+        if primary:
+            with mesh.single_process():
+                ref = eval_cli.eval_batch(nets, *inputs, noise=noise)[:3]
+        del nets
+        torch.cuda.empty_cache()
+        distributed.barrier()
+        distributed.set_grid(TP_MODEL)
+        nets = eval_cli.build_models(args, eval_cli.N_WORDS_SYNTHETIC,
+                                     torch.device("cuda"))
+        reset_counts()
+        got = eval_cli.eval_batch(nets, *inputs, noise=noise)[:3]
+        torch.cuda.synchronize()
+        res = {"launches": (FA.launches, FA.partial_launches,
+                            FA.residual_launches), "ms": []}
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eval_cli.eval_batch(nets, *inputs, noise=noise)
+            stop.record()
+            torch.cuda.synchronize()
+            res["ms"].append(start.elapsed_time(stop))
+        if primary:
+            res["errors"] = {
+                name: (float((a.float() - b.float()).abs().max()),
+                       bool(torch.allclose(a.float(), b.float(),
+                                           **TP_EVAL_TOL[preset])))
+                for name, a, b in zip(("poses", "logits", "FGD features"),
+                                      got, ref)}
+        res["outputs"] = [t.float().cpu().numpy() for t in got[:2]] \
+            if preset == "fp32" else None
+        del nets, ref, got
+        torch.cuda.empty_cache()
+        out[preset] = res
+    distributed.set_grid(1)
+    return out
+
+
+def tp_train_rank(work: str):
+    """14c in one rank of a group of 2: the GAN trainer's main on a 1 x 2
+    grid (--model_parallel 2 in the group), one step of the global batch,
+    then --resume for two more; kernel launches counted over both."""
+    flags = ["--synthetic", str(TP_STEP_SAMPLES), "--batch_size",
+             str(TRAIN_BATCH), "--device", "cuda", "--save_every", "1000",
+             "--preset", "parity", "--model_parallel", str(TP_MODEL),
+             "--model_save_path", str(Path(work) / "tp_grid")]
+    reset_counts()
+    first = train_cli.main(train_cli.build_parser().parse_args(
+        flags + ["--total_epoch", "1"]))[2]
+    torch.cuda.empty_cache()
+    resumed = train_cli.main(train_cli.build_parser().parse_args(
+        flags + ["--total_epoch", "2", "--resume"]))[2]
+    launches = (FA.launches, FA.partial_launches, FA.residual_launches,
+                FM.launches, FS.launches)
+    distributed.set_grid(1)
+    return {"train": [first, resumed], "launches": launches}
+
+
+def tp_pair_rank(work: str):
+    fp32_exact_on_cuda()
+    out = {"eval": tp_eval_rank()}
+    torch.cuda.empty_cache()
+    out["train"] = tp_train_rank(work)
+    return out
+
+
+def tp_grid_rank():
+    """14d in one rank of a group of 4: two d_first GAN steps at full width
+    and one layer, dropout on, global batch TP_GRID_B, on a 2 x 2 grid
+    (the states cut after the broadcast, gathered whole after the steps),
+    against one process in rank 0 under mesh.single_process()."""
+    from emotiongestures_torch.parallel import tensor
+
+    fp32_exact_on_cuda()
+    batch = train_batch(TP_GRID_B)
+    full = {k: v.cuda() for k, v in batch.items()}
+    primary = distributed.is_primary()
+    ref = None
+    if primary:
+        with mesh.single_process():
+            ref = dp_gan_steps(TP_GRID_CFG, full, broadcast=False)
+    distributed.barrier()
+    distributed.set_grid(TP_MODEL)
+    cfg = gan.GANConfig(**TP_GRID_CFG)
+    gs, ds = gan.create_states(cfg, 0, device="cuda")
+    distributed.broadcast_module(gs.module)
+    distributed.broadcast_module(ds.module)
+    for st in (gs, ds):
+        tensor.shard_train_state(st, distributed.model_index(), TP_MODEL)
+    local = dp_local(batch)
+    metrics, ms = [], []
+    for i in range(DP_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gs, ds, m = gan.train_step(gs, ds, local, 1 + i, cfg)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        metrics.append({k: float(v) for k, v in m.items()})
+    whole = [tensor.whole_tree(st)["model"] for st in (gs, ds)]
+    res = {"ms": ms, "grid": (distributed.data_index(),
+                              distributed.model_index())}
+    if primary:
+        res.update(dp_errors(ref, (cfg, *whole, metrics, ms),
+                             DP_TOL["float32"]))
+    distributed.set_grid(1)
+    return res
+
+
+def phase_tp(card, work: Path, counts):
+    """Phase 14: tensor parallelism on the one card: 14b-14c in two ranks
+    and 14d in four, spawned and joined over gloo (NCCL refuses two ranks
+    on one device), against one process. The ranks time-slice the card and
+    every model_sum crosses the host: their times are no scaling figure."""
+    from emotiongestures_torch.parallel import tensor  # noqa: F401
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    result = {"kernel": phase_tp_kernel(card, gen)}
+    # 14c's one-process reference and its resume, in this process
+    one_dir, grid_dir = work / "tp_one", work / "tp_grid"
+    one_flags = ["--synthetic", str(TP_STEP_SAMPLES), "--batch_size",
+                 str(TRAIN_BATCH), "--device", "cuda", "--save_every",
+                 "1000", "--preset", "parity", "--total_epoch", "1",
+                 "--model_save_path", str(one_dir)]
+    one = train_cli.main(train_cli.build_parser().parse_args(one_flags))[2]
+    torch.cuda.empty_cache()
+    log(f"phase 14b-14c: {TP_MODEL} ranks on cuda:0 over gloo as a 1 x "
+        f"{TP_MODEL} grid (spawned; every model_sum through the host)")
+    t = time.perf_counter()
+    pair = mesh.launch(tp_pair_rank, TP_MODEL, str(work), device="cuda",
+                       backend="gloo", timeout=TP_TIMEOUT)
+    pair_wall = time.perf_counter() - t
+    # 14b
+    for preset, tol in TP_EVAL_TOL.items():
+        e0 = pair[0]["eval"][preset]
+        log(f"phase 14b ({preset}): eval_batch at full width, {BATCH} rows, "
+            f"1 x {TP_MODEL} grid vs one process (atol {tol['atol']}, rtol "
+            f"{tol['rtol']}): " + ", ".join(
+                f"{k} max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}"
+                for k, (err, ok) in e0["errors"].items()))
+        for i, r in enumerate(pair):
+            e = r["eval"][preset]
+            log(f"  [{card}] rank {i}: launches (whole, partial, residual "
+                f"LN) {e['launches']} in one eval_batch; eval_batch ms "
+                "(CUDA events, two ranks on one card, gloo) "
+                + ", ".join(f"{x:.1f}" for x in e["ms"]))
+            want = (0, 6, 6)
+            if tuple(e["launches"]) != want:
+                raise SystemExit(f"14b {preset} rank {i}: launches "
+                                 f"{e['launches']}, want {want}")
+            counts["fused_attention_partial"] += e["launches"][1]
+            counts["residual_layer_norm"] += e["launches"][2]
+        if not all(ok for _, ok in e0["errors"].values()):
+            raise SystemExit(f"14b {preset}: the grid disagrees with one "
+                             "process")
+        if preset == "fp32":
+            same = all(np.array_equal(a, b) for a, b in zip(
+                pair[0]["eval"][preset]["outputs"],
+                pair[1]["eval"][preset]["outputs"]))
+            if not same:
+                raise SystemExit("14b: the two model ranks' poses differ")
+        e0.pop("outputs", None)
+        for r in pair[1:]:
+            r["eval"][preset].pop("outputs", None)
+        result[f"eval_{preset}"] = {"rank0": e0, "ms": [
+            r["eval"][preset]["ms"] for r in pair]}
+    # 14c
+    tr = [r["train"] for r in pair]
+    for i, r in enumerate(tr):
+        steps = [x["steps"] for x in r["train"]]
+        if steps != [1, 3] or r["launches"] != (0, 0, 0, 0, 0):
+            raise SystemExit(f"14c rank {i}: steps {steps}, launches "
+                             f"{r['launches']}")
+    g_one = torch.load(one_dir / "generator" / "checkpoint_iteration1.pt",
+                       weights_only=True)
+    d_one = torch.load(one_dir / "discriminator" /
+                       "checkpoint_iteration1.pt", weights_only=True)
+    grid_first = tr[0]["train"][0]["metrics"]
+    # the grid's step-1 checkpoint was pruned by nothing: max_to_keep 5
+    g_grid = torch.load(grid_dir / "generator" / "checkpoint_iteration1.pt",
+                        weights_only=True)
+    d_grid = torch.load(grid_dir / "discriminator" /
+                        "checkpoint_iteration1.pt", weights_only=True)
+    cfg = gan.GANConfig()
+    err = dp_errors((cfg, g_one["model"], d_one["model"], [one["metrics"]],
+                     None),
+                    (cfg, g_grid["model"], d_grid["model"], [grid_first],
+                     None), ((2e-4,), 5e-3), steps=1)
+    bad, n_out = err["bad"], err["outliers"]
+    log(f"phase 14c: GAN trainer main at its default width, fp32 (--preset "
+        f"parity), global batch {TRAIN_BATCH}, 1 x {TP_MODEL} grid vs one "
+        f"process, one step: losses rel err {err['loss_rel'][0]:.3e}; "
+        f"states max_abs_err {err['state_max_abs_err']:.3e}, {n_out} of "
+        f"{err['elements']} beyond 2 * lr ({'ok' if not bad else 'FAIL'}); "
+        "checkpoints whole (loaded strictly below), steps 1 -> 3 after "
+        "--resume on both ranks, no kernel launch")
+    for i, r in enumerate(tr):
+        log(f"  [{card}] rank {i}: ms per step (CUDA events, two ranks on "
+            "one card, gloo): " + ", ".join(
+                f"{x:.1f}" for s in r["train"] for x in s["step_ms"])
+            + f"; one process {', '.join(f'{x:.1f}' for x in one['step_ms'])}")
+    if bad:
+        raise SystemExit(f"14c: the grid's step disagrees with one process: "
+                         f"{bad[:5]}")
+    # the grid's gathered step-1 checkpoint resumed in one process
+    cross = work / "tp_grid_in_one"
+    for net in ("generator", "discriminator"):
+        (cross / net).mkdir(parents=True)
+        shutil.copy(grid_dir / net / "checkpoint_iteration1.pt", cross / net)
+    cross_sum = train_cli.main(train_cli.build_parser().parse_args(
+        one_flags[:-1] + [str(cross), "--total_epoch", "2", "--resume"]))[2]
+    if cross_sum["steps"] != 3:
+        raise SystemExit(f"14c: the grid's checkpoint resumed in one "
+                         f"process ran to step {cross_sum['steps']}")
+    g3 = torch.load(grid_dir / "generator" / "checkpoint_iteration3.pt",
+                    weights_only=True)["model"]
+    c3 = torch.load(cross / "generator" / "checkpoint_iteration3.pt",
+                    weights_only=True)["model"]
+    cross_err = max(float((c3[k].double() - v.double()).abs().max())
+                    for k, v in g3.items())
+    log(f"  the grid's step-1 checkpoint resumed in one process to step 3: "
+        f"generator max_abs_err {cross_err:.3e} from the grid's own step 3")
+    if cross_err >= 5e-3:
+        raise SystemExit("14c: resuming across layouts disagrees")
+    result["train"] = {"loss_rel": err["loss_rel"][0],
+                       "state_max_abs_err": err["state_max_abs_err"],
+                       "beyond_2lr": n_out, "elements": err["elements"],
+                       "ms": [[x for s in r["train"] for x in s["step_ms"]]
+                              for r in tr], "one_ms": one["step_ms"],
+                       "cross_resume_err": cross_err}
+    # 14d
+    log(f"phase 14d: 2 x {TP_MODEL} grid ({2 * TP_MODEL} ranks on cuda:0 "
+        f"over gloo), GAN train_step x {DP_STEPS}, full width, one layer, "
+        f"global batch {TP_GRID_B}, dropout on, against one process")
+    t = time.perf_counter()
+    quad = mesh.launch(tp_grid_rank, 2 * TP_MODEL, device="cuda",
+                       backend="gloo", timeout=TP_TIMEOUT)
+    quad_wall = time.perf_counter() - t
+    q0 = quad[0]
+    log(f"  losses rel err " + ", ".join(
+        f"step {i} {v:.3e}" for i, v in enumerate(q0["loss_rel"]))
+        + f"; states max_abs_err {q0['state_max_abs_err']:.3e}, "
+        f"{q0['outliers']} of {q0['elements']} elements beyond 2 * (2 * lr) "
+        f"({'ok' if not q0['bad'] else 'FAIL'}); ranks (data, model) "
+        + ", ".join(str(tuple(r["grid"])) for r in quad))
+    log(f"  [{card}] ms per step per rank (4 ranks on one card): "
+        + "; ".join(", ".join(f"{x:.1f}" for x in r["ms"]) for r in quad))
+    if q0["bad"]:
+        raise SystemExit(f"14d: the 2 x 2 grid disagrees with one process: "
+                         f"{q0['bad'][:5]}")
+    result["grid22"] = {k: q0[k] for k in ("loss_rel", "state_max_abs_err",
+                                           "outliers", "elements")}
+    result["grid22"]["ms"] = [r["ms"] for r in quad]
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"  [{card}] phase 14 wall {result['wall_s']:.1f} s (14b-14c ranks "
+        f"{pair_wall:.1f} s, 14d ranks {quad_wall:.1f} s)")
+    return result
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
@@ -3553,7 +4009,8 @@ def main(argv) -> int:
     # same inputs as before it was added
     se_gen = torch.Generator(device=DEVICE).manual_seed(3)
     se_entry, se_detail = phase_se_stage(se_gen)
-    counts = {"fused_attention": 0, "mel": 0, "se_stage": 0}
+    counts = {"fused_attention": 0, "mel": 0, "se_stage": 0,
+              "fused_attention_partial": 0, "residual_layer_norm": 0}
     for precision in ("float32", "bfloat16"):
         phase_se_path(precision, se_gen, counts)
     phase_demo(args.out)
@@ -3571,16 +4028,38 @@ def main(argv) -> int:
         migrate = phase_migrate(card, work, counts, store)
         zoo = phase_zoo(card, work, gen, counts, serving)
         orbax_ckpt = phase_orbax(card, work, counts, serving)
+        tp = phase_tp(card, work, counts)
     entries = (attn_entry, mel_entry, se_entry)
     for e in entries:
         e["launches"] = counts[e["name"]]
         if e["launches"] < 1:
             raise SystemExit(f"{e['name']}: not launched on the main path")
+    # kernel 1's partial-heads form and its epilogue (14a: ms of model
+    # index 0's partial and of the epilogue, bf16 weights as the timed case
+    # of phase 2a; 14b: launches on the grid's eval)
+    k14 = tp["kernel"]["act fp32, w bf16"]
+    attn_entry.update({
+        "partial_launches": counts["fused_attention_partial"],
+        "partial_ms": k14["partial_ms"][0],
+        "partial_plain_ms": k14["partial_plain_ms"],
+        "partial_bound_ms": k14["partial_bound_ms"],
+        "partial_bound_by": k14["partial_bound_by"],
+        "residual_ln_launches": counts["residual_layer_norm"],
+        "residual_ln_ms": k14["residual_ln_ms"],
+        "residual_ln_plain_ms": k14["residual_ln_plain_ms"],
+        "residual_ln_bound_ms": k14["residual_ln_bound_ms"],
+        "residual_ln_bound_by": k14["residual_ln_bound_by"],
+        "residual_ln_library_ms": k14["residual_ln_library_ms"],
+        "partial_max_abs_err": max(v["max_abs_err"] for v in
+                                   tp["kernel"].values())})
+    for name in ("fused_attention_partial", "residual_layer_norm"):
+        if counts[name] < 1:
+            raise SystemExit(f"{name}: not launched on the grid's eval")
 
     detail = {"card": card, "serving": serving, "eval": evals,
               "train": train, "aux": aux, "classifier": kfold, "store": store,
               "data_parallel": dp, "migration": migrate, "zoo": zoo,
-              "orbax": orbax_ckpt,
+              "orbax": orbax_ckpt, "tensor_parallel": tp,
               "se_stage": se_detail, "attention": attn_detail}
     (args.out / "result.json").write_text(json.dumps(detail, indent=1))
     keys = ("ms_per_step", "samples_per_s", "peak_bytes", "wall_s")
@@ -3613,7 +4092,10 @@ def main(argv) -> int:
                 "read_s", "read_mb_per_s", "zstd_mb_per_s",
                 "ms_per_forward")} for p in ("float32", "bfloat16")},
             "jax_written_zstd_mb_per_s": orbax_ckpt["jax"]["zstd_mb_per_s"],
-            "conv_gemm": orbax_ckpt["conv_gemm"]}}))
+            "conv_gemm": orbax_ckpt["conv_gemm"]},
+        "tensor_parallel": {"wall_s": tp["wall_s"], "eval_batch_ms": {
+            p: tp[f"eval_{p}"]["ms"] for p in TP_EVAL_TOL},
+            "train_ms": tp["train"]["ms"], "grid22_ms": tp["grid22"]["ms"]}}))
     log(card)
     log(json.dumps({"kernels": list(entries)}))
     log(json.dumps({"ok": True, "device": {

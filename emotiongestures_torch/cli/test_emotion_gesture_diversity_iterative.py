@@ -48,10 +48,17 @@ the global batch. Rank 0 returns the summary of a one-process run; the
 other ranks return only their `timings`. Under the launcher `main` returns
 rank 0's summary.
 
-Not ported yet, and refused with an error: --model_parallel > 1 (tensor
-parallelism, ROADMAP.md queue 1, item 6b). Run from the command line with --precision
-float32 on the card, the CLI turns TF32 off for its process; `main()`
-called from other code leaves that switch to its caller.
+--model_parallel M with --num_devices N evaluates on an (N / M) x M data x
+model grid of processes (M must divide N; --test_batch_size must divide
+over N / M): the generator's and the skeleton classifier's FFN and MHA
+weights are split over each model group by the JAX package's rules
+(parallel/tensor.py), the FGD autoencoder and the CVAE are replicated, the
+ranks of a model group hold the same rows, and the metrics are pooled over
+the data axis once. --fused_attention then runs the kernel's partial-heads
+form on each rank's heads, the partials summed over the model group, and
+its residual LayerNorm. Run from the command line with --precision float32
+on the card, the CLI turns TF32 off for its process; `main()` called from
+other code leaves that switch to its caller.
 """
 from __future__ import annotations
 
@@ -81,7 +88,7 @@ from ..models.cvae import EmotionCVAEv3
 from ..models.fgd_ae import FGDAutoEncoder
 from ..models.generator import GestureTransformer
 from ..models.skeleton_classifier import SkeletonTransformer
-from ..parallel import distributed, mesh
+from ..parallel import distributed, mesh, tensor
 from ..utils.logging import set_logger
 from ..utils.weights import jax_table, load_reference_checkpoint
 from .presets import EVAL_FAST, add_preset_flag, apply_preset
@@ -184,7 +191,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="host->device prefetch depth (pinned memory, "
                              "a side CUDA stream); 0 = synchronous")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="1: tensor parallelism is not ported")
+                        help="tensor-parallel degree (beyond reference "
+                             "parity): shard the transformer FFN/MHA "
+                             "kernels over a `model` mesh axis, batch over "
+                             "the remaining `data` axis (Megatron layout, "
+                             "parallel/tensor.py). For serving this trades "
+                             "batch-parallel throughput for lower "
+                             "per-batch latency; must divide --num_devices")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     add_preset_flag(parser)
@@ -248,6 +261,12 @@ def build_models(args, n_words: int, device) -> EvalNets:
     }
     for net in (gen, fgd, skeleton, vae):
         distributed.broadcast_module(net)
+    # tensor parallelism: the FFN and MHA weights of the generator and the
+    # skeleton classifier split over the model group; the FGD autoencoder
+    # and the CVAE match no rule and stay whole
+    for net in (gen, skeleton):
+        tensor.shard_module(net, distributed.model_index(),
+                            distributed.model_count())
     dtype = torch.float32
     if args.precision == "bfloat16":
         dtype = torch.bfloat16
@@ -384,10 +403,11 @@ def test_model(args, batches, n_words: int, noise=None):
         raise ValueError("test_model: no batches")
     if mesh.active():
         # the per-rank means of equal row counts average to the global
-        # batch's; beat scores and counts add
+        # batch's; beat scores and counts add; over the data axis, so each
+        # row counts once on a grid
         sums = distributed.host_sum(torch.tensor(
             [all_acc, total_error_pose, total_rot, bl_score,
-             n_beat_samples], dtype=torch.float64)).tolist()
+             n_beat_samples], dtype=torch.float64), data_axis=True).tolist()
         r = mesh.world()
         all_acc, total_error_pose, total_rot = (v / r for v in sums[:3])
         bl_score, n_beat_samples = sums[3], int(sums[4])
@@ -468,6 +488,12 @@ def main(args=None, noise=None):
                "test_emotion_gesture_diversity_iterative.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else device)
+    if distributed.model_count() > 1:
+        logging.info("serving mesh: %s (batch %d -> %d/chip)",
+                     {"data": distributed.data_count(),
+                      "model": distributed.model_count()},
+                     args.test_batch_size,
+                     args.test_batch_size // distributed.data_count())
     logging.info(pprint.pformat(vars(args)))
 
     if args.synthetic:

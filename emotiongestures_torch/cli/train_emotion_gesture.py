@@ -38,11 +38,19 @@ metrics.jsonl and the checkpoints, and every rank resumes from the same
 step. Under the launcher `main` returns (None, None, rank 0's summary): the
 states live in the ranks.
 
+Tensor parallelism: --model_parallel M with --num_devices N starts N
+processes on this host as an (N / M) x M data x model grid (the JAX
+package's `devices.reshape(n_data, n_model)`; M must divide N, the batch
+must divide over N / M). The generator's and the discriminator's FFN and
+MHA weights and their Adam moments are split over each model group by the
+JAX package's rules (parallel/tensor.py), everything else is replicated,
+and a step equals one process's on the global batch. Checkpoints are
+written whole (the one-process layout), and --resume onto a grid cuts
+what it loads. Single-host only: with the multi-host flags it is refused.
+
 --variant memory|base|spatial_memory|padding_initial picks the generator's
 prior encoder (models/generator.py); a --resume continues a run of the same
 --variant, and the checkpoint of another variant fails its strict load.
-Not ported yet, and refused with an error naming the ROADMAP.md item (queue
-1): --model_parallel > 1 (tensor parallelism, item 6b).
 Run from the command line in fp32 on the card, the trainer turns TF32 off
 for its process; `main()` called from other code leaves that switch to its
 caller.
@@ -64,7 +72,7 @@ from ..data.dataset import SpeechMotionDataset
 from ..data.pipeline import Prefetcher, batch_rows, place_batches
 from ..data.synthetic import SyntheticGestureDataset
 from ..data.vocab import build_vocab
-from ..parallel import distributed, mesh
+from ..parallel import distributed, mesh, tensor
 from ..train import gan
 from ..utils.checkpoint import AsyncSaver, GracefulShutdown, load_checkpoint
 from ..utils.logging import MetricLogger, set_logger
@@ -159,6 +167,10 @@ def main(args=None):
         raise SystemExit("--cast_inputs requires --compute_dtype bfloat16")
     if args.data_echo < 1:
         raise SystemExit("--data_echo must be >= 1")
+    if args.model_parallel > 1 and mesh.multihost(args):
+        raise SystemExit("--model_parallel is single-host only "
+                         "(combine with --num_devices, not "
+                         "--coordinator_address)")
     ranks = mesh.plan(args, args.batch_size, device)
     if ranks > 1 and not distributed.is_initialized():
         return None, None, mesh.launch(
@@ -168,7 +180,12 @@ def main(args=None):
     set_logger(args.model_save_path, "train_emotion_gesture.log")
     logging.info("device: %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else device)
-    if ranks > 1:
+    n_data, n_model = distributed.data_count(), distributed.model_count()
+    if n_model > 1:
+        logging.info("data x model mesh: %s (global batch %d -> %d/chip)",
+                     {"data": n_data, "model": n_model}, args.batch_size,
+                     args.batch_size // n_data)
+    elif ranks > 1:
         logging.info("data parallel: %d processes, global batch %d -> %d "
                      "per rank", ranks, args.batch_size,
                      args.batch_size // ranks)
@@ -220,6 +237,10 @@ def main(args=None):
         if ok:
             logging.info("resumed from step %d", gen_state.step)
         mesh.same_on_ranks(gen_state.step, "the resumed step")
+    # the FFN and MHA weights and their Adam moments split over the model
+    # group, after a resume has loaded them whole
+    for state in (gen_state, disc_state):
+        tensor.shard_train_state(state, distributed.model_index(), n_model)
     float_dtype = torch.bfloat16 if args.cast_inputs else None
 
     def epoch_batches(epoch):
@@ -237,9 +258,12 @@ def main(args=None):
     saver = AsyncSaver()
 
     def save_all():
+        gen, disc = gen_state, disc_state
+        if n_model > 1:  # the shards gathered, on every rank of the grid
+            gen, disc = tensor.whole_tree(gen), tensor.whole_tree(disc)
         if distributed.is_primary():
-            saver.save(gen_state, gen_dir)
-            saver.save(disc_state, disc_dir)
+            saver.save(gen, gen_dir)
+            saver.save(disc, disc_dir)
         distributed.barrier()
 
     ladder = staged_lr(args.lr)

@@ -164,10 +164,14 @@ class Dropout(nn.Dropout):
     Under data parallelism the mask is this rank's rows of the global
     batch's draw; `blocks` > 1 says that x is that many batches
     concatenated along dim 0 (the discriminator's real and fake passes as
-    one), each of whose global draws gives this rank its rows."""
+    one), each of whose global draws gives this rank its rows. `heads`
+    (i, n), under tensor parallelism: x holds the i-th of n equal slices
+    of dim 1 (the heads of attention probabilities), and the mask is that
+    slice of the draw for all n."""
 
     generator = None
     blocks = 1
+    heads = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -175,8 +179,16 @@ class Dropout(nn.Dropout):
         keep = 1.0 - self.p
         if keep == 0.0:
             return torch.zeros_like(x)
-        mask = mesh.global_rand(x.shape, self.generator, x.device,
-                                self.blocks) < keep
+        if self.heads is None:
+            draw = mesh.global_rand(x.shape, self.generator, x.device,
+                                    self.blocks)
+        else:
+            i, n = self.heads
+            h = x.shape[1]
+            draw = mesh.global_rand(
+                (x.shape[0], n * h) + tuple(x.shape[2:]), self.generator,
+                x.device, self.blocks)[:, i * h:(i + 1) * h]
+        mask = draw < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

@@ -62,8 +62,17 @@
 // Rows past B*L and weight rows past H*d_k load as zeros (cp.async
 // zero-fill); key columns >= Lk are masked by index.
 //
-// C interface (loaded with ctypes): eg_attention(...) returns the
-// cudaGetLastError() code after its launches; 0 means all three launched.
+// Partial-heads form, for a model split over the heads (tensor parallelism):
+// eg_attention_partial runs launches 1 and 2 on this rank's H_local heads
+// and launch 3 with its epilogue compiled out (kLN false): the fp32 product
+// ctx_local Wo_local^T of the local heads through the local columns of Wo,
+// no residual, no LayerNorm. The caller sums the ranks' partials (fp32),
+// then eg_residual_ln, one warp per row, computes LayerNorm(sum + q_in) *
+// scale + bias with the mean and variance as launch 3's epilogue does.
+//
+// C interface (loaded with ctypes): eg_attention(...), eg_attention_partial
+// (...) and eg_residual_ln(...) return the cudaGetLastError() code after
+// their launches; 0 means all of them launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -519,11 +528,13 @@ mha_core_kernel(const float* __restrict__ qkv, float* __restrict__ ctx, int B,
 // Launch 3: output projection + residual + LayerNorm, 64 rows x all D
 // columns per block. With fp32 weights the warps are 1 x 8 (each splits the
 // same A rows, but its own W columns once); with bf16 weights, which need no
-// split, 2 x 4, so that each warp splits half the A rows.
+// split, 2 x 4, so that each warp splits half the A rows. kLN false: the
+// projection alone, written as it is (the partial-heads form; q_in and the
+// LayerNorm parameters are not read).
 // ---------------------------------------------------------------------------
 constexpr int kOutRows = 64;
 
-template <typename TQ, typename TW, int NC>
+template <typename TQ, typename TW, int NC, bool kLN>
 __global__ void __launch_bounds__(kThreads)
 mha_out_ln_kernel(const float* __restrict__ ctx, const TQ* __restrict__ q_in,
                   const TW* __restrict__ wo, const TW* __restrict__ ln_scale,
@@ -544,6 +555,22 @@ mha_out_ln_kernel(const float* __restrict__ ctx, const TQ* __restrict__ q_in,
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / WN) * MT * 16, wc = (warp % WN) * NT * 8;
   const float inv_d = 1.f / (float)D;
+
+  if constexpr (!kLN) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + wr + i * 16 + g + 8 * half;
+        if (r >= R) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          *reinterpret_cast<float2*>(
+              &out[(size_t)r * D + wc + j * 8 + 2 * t]) =
+              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+    return;
+  }
 
   // the residual; rows past R stay zero and are not stored
 #pragma unroll
@@ -652,12 +679,12 @@ void launch_core(const float* qkv, float* ctx, int B, int Lq, int Lk, int H,
                                                          H, dk);
 }
 
-template <typename TQ, typename TW, int NC>
+template <typename TQ, typename TW, int NC, bool kLN>
 void launch_out(const float* ctx, const void* q_in, const void* wo,
                 const void* s, const void* bi, float* out, int R, int HD,
                 cudaStream_t stream) {
   const size_t smem = gemm_smem_bytes<float, TW, kOutRows, 128 * NC, 1>();
-  auto kern = mha_out_ln_kernel<TQ, TW, NC>;
+  auto kern = mha_out_ln_kernel<TQ, TW, NC, kLN>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   const int blocks = (R + kOutRows - 1) / kOutRows;
@@ -666,15 +693,23 @@ void launch_out(const float* ctx, const void* q_in, const void* wo,
       static_cast<const TW*>(s), static_cast<const TW*>(bi), out, R, HD);
 }
 
-template <typename TQ, typename TW>
+template <typename TQ, typename TW, bool kLN = true>
 void launch_out_nc(int nc, const float* ctx, const void* q_in, const void* wo,
                    const void* s, const void* bi, float* out, int R, int HD,
                    cudaStream_t st) {
   switch (nc) {
-    case 1: launch_out<TQ, TW, 1>(ctx, q_in, wo, s, bi, out, R, HD, st); break;
-    case 2: launch_out<TQ, TW, 2>(ctx, q_in, wo, s, bi, out, R, HD, st); break;
-    case 3: launch_out<TQ, TW, 3>(ctx, q_in, wo, s, bi, out, R, HD, st); break;
-    default: launch_out<TQ, TW, 4>(ctx, q_in, wo, s, bi, out, R, HD, st); break;
+    case 1:
+      launch_out<TQ, TW, 1, kLN>(ctx, q_in, wo, s, bi, out, R, HD, st);
+      break;
+    case 2:
+      launch_out<TQ, TW, 2, kLN>(ctx, q_in, wo, s, bi, out, R, HD, st);
+      break;
+    case 3:
+      launch_out<TQ, TW, 3, kLN>(ctx, q_in, wo, s, bi, out, R, HD, st);
+      break;
+    default:
+      launch_out<TQ, TW, 4, kLN>(ctx, q_in, wo, s, bi, out, R, HD, st);
+      break;
   }
 }
 
@@ -687,6 +722,103 @@ void launch_all(const void* q_in, const void* kv_in, const void* wq,
   launch_core(qkv, ctx, B, Lq, Lk, H, dk, st);
   launch_out_nc<TQ, TW>(D / 128, ctx, q_in, wo, s, bi, out, B * Lq, H * dk,
                         st);
+}
+
+template <typename TQ, typename TW>
+void launch_partial(const void* q_in, const void* kv_in, const void* wq,
+                    const void* wk, const void* wv, const void* wo,
+                    float* qkv, float* ctx, float* out, int B, int Lq, int Lk,
+                    int D, int H, int dk, cudaStream_t st) {
+  launch_qkv<TQ, TW>(q_in, kv_in, wq, wk, wv, qkv, B, Lq, Lk, D, H, dk, st);
+  launch_core(qkv, ctx, B, Lq, Lk, H, dk, st);
+  launch_out_nc<float, TW, false>(D / 128, ctx, nullptr, wo, nullptr,
+                                  nullptr, out, B * Lq, H * dk, st);
+}
+
+// ---------------------------------------------------------------------------
+// The partial form's epilogue: out = LayerNorm(part + q_in) * scale + bias,
+// eps 1e-6, one warp per row of D = 128 * NC, each lane four columns of
+// every 128; the row's sum, then the sum of squared deviations, over the
+// warp's lanes by shuffles.
+// ---------------------------------------------------------------------------
+template <typename TQ, typename TW, int NC>
+__global__ void __launch_bounds__(kThreads)
+residual_ln_kernel(const float* __restrict__ part, const TQ* __restrict__ q_in,
+                   const TW* __restrict__ ln_scale,
+                   const TW* __restrict__ ln_bias, float* __restrict__ out,
+                   int R) {
+  constexpr int D = 128 * NC;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float inv_d = 1.f / (float)D;
+  float x[NC][4];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const size_t at = (size_t)r * D + j * 128 + lane * 4;
+    const float4 p = *reinterpret_cast<const float4*>(part + at);
+    const float2 q0 = load2(q_in + at), q1 = load2(q_in + at + 2);
+    x[j][0] = p.x + q0.x;
+    x[j][1] = p.y + q0.y;
+    x[j][2] = p.z + q1.x;
+    x[j][3] = p.w + q1.y;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s += x[j][e];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mean = s * inv_d;
+  s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = x[j][e] - mean;
+      s = fmaf(d, d, s);
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float rstd = 1.f / sqrtf(s * inv_d + 1e-6f);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = j * 128 + lane * 4;
+    const float2 sc0 = load2(ln_scale + c), sc1 = load2(ln_scale + c + 2);
+    const float2 bi0 = load2(ln_bias + c), bi1 = load2(ln_bias + c + 2);
+    *reinterpret_cast<float4*>(out + (size_t)r * D + c) = make_float4(
+        (x[j][0] - mean) * rstd * sc0.x + bi0.x,
+        (x[j][1] - mean) * rstd * sc0.y + bi0.y,
+        (x[j][2] - mean) * rstd * sc1.x + bi1.x,
+        (x[j][3] - mean) * rstd * sc1.y + bi1.y);
+  }
+}
+
+template <typename TQ, typename TW>
+void launch_residual_ln(int nc, const float* part, const void* q_in,
+                        const void* s, const void* bi, float* out, int R,
+                        cudaStream_t st) {
+  const int blocks = (R + kThreads / 32 - 1) / (kThreads / 32);
+  const TQ* q = static_cast<const TQ*>(q_in);
+  const TW* sc = static_cast<const TW*>(s);
+  const TW* b = static_cast<const TW*>(bi);
+  switch (nc) {
+    case 1:
+      residual_ln_kernel<TQ, TW, 1><<<blocks, kThreads, 0, st>>>(
+          part, q, sc, b, out, R);
+      break;
+    case 2:
+      residual_ln_kernel<TQ, TW, 2><<<blocks, kThreads, 0, st>>>(
+          part, q, sc, b, out, R);
+      break;
+    case 3:
+      residual_ln_kernel<TQ, TW, 3><<<blocks, kThreads, 0, st>>>(
+          part, q, sc, b, out, R);
+      break;
+    default:
+      residual_ln_kernel<TQ, TW, 4><<<blocks, kThreads, 0, st>>>(
+          part, q, sc, b, out, R);
+      break;
+  }
 }
 
 }  // namespace
@@ -719,5 +851,61 @@ extern "C" int eg_attention(const void* q_in, int q_bf16, const void* kv_in,
   else
     launch_all<float, float>(q_in, kv_in, wq, wk, wv, wo, ln_scale, ln_bias,
                              s, c, o, B, Lq, Lk, D, H, dk, st);
+  return (int)cudaGetLastError();
+}
+
+// The partial-heads form: launches 1-3 on H local heads, the fp32 partial
+// (B, Lq, D) of ctx_local Wo_local^T in out; wq/wk/wv (H*dk, D) and wo
+// (D, H*dk) are this rank's shards. qkv and ctx scratch as eg_attention's at
+// H heads. The caller checks what eg_attention's caller checks.
+extern "C" int eg_attention_partial(const void* q_in, int q_bf16,
+                                    const void* kv_in, const void* wq,
+                                    const void* wk, const void* wv,
+                                    const void* wo, int w_bf16, void* qkv,
+                                    void* ctx, void* out, int B, int Lq,
+                                    int Lk, int D, int H, int dk,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* s = static_cast<float*>(qkv);
+  float* c = static_cast<float*>(ctx);
+  float* o = static_cast<float*>(out);
+  using bf16 = __nv_bfloat16;
+  if (q_bf16 && w_bf16)
+    launch_partial<bf16, bf16>(q_in, kv_in, wq, wk, wv, wo, s, c, o, B, Lq,
+                               Lk, D, H, dk, st);
+  else if (q_bf16)
+    launch_partial<bf16, float>(q_in, kv_in, wq, wk, wv, wo, s, c, o, B, Lq,
+                                Lk, D, H, dk, st);
+  else if (w_bf16)
+    launch_partial<float, bf16>(q_in, kv_in, wq, wk, wv, wo, s, c, o, B, Lq,
+                                Lk, D, H, dk, st);
+  else
+    launch_partial<float, float>(q_in, kv_in, wq, wk, wv, wo, s, c, o, B, Lq,
+                                 Lk, D, H, dk, st);
+  return (int)cudaGetLastError();
+}
+
+// out (R, D) = LayerNorm(part + q_in) * ln_scale + ln_bias: part fp32, q_in
+// fp32 or bf16 (q_bf16), ln_scale/ln_bias (D,) fp32 or bf16 (w_bf16), out
+// fp32. The caller checks D % 128 == 0, D <= 512 and 16-byte aligned
+// pointers.
+extern "C" int eg_residual_ln(const void* part, const void* q_in, int q_bf16,
+                              const void* ln_scale, const void* ln_bias,
+                              int w_bf16, void* out, int R, int D,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(part);
+  float* o = static_cast<float*>(out);
+  using bf16 = __nv_bfloat16;
+  const int nc = D / 128;
+  if (q_bf16 && w_bf16)
+    launch_residual_ln<bf16, bf16>(nc, p, q_in, ln_scale, ln_bias, o, R, st);
+  else if (q_bf16)
+    launch_residual_ln<bf16, float>(nc, p, q_in, ln_scale, ln_bias, o, R, st);
+  else if (w_bf16)
+    launch_residual_ln<float, bf16>(nc, p, q_in, ln_scale, ln_bias, o, R, st);
+  else
+    launch_residual_ln<float, float>(nc, p, q_in, ln_scale, ln_bias, o, R,
+                                     st);
   return (int)cudaGetLastError();
 }

@@ -33,8 +33,9 @@ from ..parallel import distributed, mesh
 
 def batch_rows(batch_size: int):
     """This process's rows of every global batch of `batch_size` under data
-    parallelism (`parallel.distributed.process_batch_slice`); None, all
-    rows, in one process."""
+    parallelism (`parallel.distributed.process_batch_slice`: its data
+    index's share, the same rows on every rank of a model group); None,
+    all rows, in one process or on a single data index."""
     if not mesh.active():
         return None
     return distributed.process_batch_slice(batch_size)

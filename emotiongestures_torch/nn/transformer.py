@@ -12,6 +12,16 @@ d_k == d_v, Lq <= 64, Lk <= 64 and input widths == d_model to the fused
 sublayer (`ops/fused_attention.py`: the CUDA kernel on the card, its plain
 version on the CPU), the JAX package's routing rule exactly. Other calls take
 the einsum path, whose products promote types as jnp's do.
+
+Under tensor parallelism (`parallel/tensor.py::shard_module` sets
+`n_model` and `model_index`) each block holds its shard at the same
+attribute names: H / n_model heads of the Q/K/V rows and of fc's columns,
+d_inner / n_model of w_1's rows and bias and of w_2's columns. The input
+enters through `mesh.model_copy`, the partial output of fc or w_2 leaves
+through `mesh.model_sum`, and w_2's bias, dropout, residual and LayerNorm
+follow on the whole width, as in one process. The attention dropout's mask
+is this rank's heads of the draw for all heads; a fused call runs the
+kernel's partial-heads form and its residual LayerNorm.
 """
 from __future__ import annotations
 
@@ -19,10 +29,13 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..core.layers import (Dropout, LayerNorm, Linear, promoted,
                            sinusoid_position_table)
-from ..ops.fused_attention import fused_attention
+from ..ops.fused_attention import (fused_attention, fused_attention_partial,
+                                   residual_layer_norm)
+from ..parallel import mesh
 
 
 def _mm(x, weight):
@@ -31,7 +44,17 @@ def _mm(x, weight):
     return x.to(dt) @ weight.to(dt).T
 
 
+def _model_inputs(q, k, v):
+    """q, k, v through model_copy, each distinct tensor once."""
+    q_in = mesh.model_copy(q)
+    k_in = q_in if k is q else mesh.model_copy(k)
+    v_in = k_in if v is k else (q_in if v is q else mesh.model_copy(v))
+    return q_in, k_in, v_in
+
+
 class MultiHeadAttention(nn.Module):
+    n_model, model_index = 1, 0  # the model group (parallel/tensor.py)
+
     def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int,
                  dropout: float = 0.1, attn_dropout: float = 0.1,
                  fused: bool = False):
@@ -55,7 +78,17 @@ class MultiHeadAttention(nn.Module):
                 and q.shape[-1] == k.shape[-1] == self.d_model)
 
     def forward(self, q, k, v, mask=None):
-        H, dk, dv = self.n_head, self.d_k, self.d_v
+        H, dk, dv = self.n_head // self.n_model, self.d_k, self.d_v
+        grid = self.n_model > 1
+        if self.can_fuse(q, k, mask) and grid:
+            q = q.contiguous()
+            part = fused_attention_partial(
+                q, k.contiguous(), self.w_qs.weight, self.w_ks.weight,
+                self.w_vs.weight, self.fc.weight, n_head_local=H, d_k=dk)
+            out = residual_layer_norm(mesh.model_sum(part), q,
+                                      self.layer_norm.weight,
+                                      self.layer_norm.bias)
+            return out, None
         if self.can_fuse(q, k, mask):
             out = fused_attention(
                 q.contiguous(), k.contiguous(), self.w_qs.weight,
@@ -67,6 +100,8 @@ class MultiHeadAttention(nn.Module):
         B, Lq, _ = q.shape
         Lk = k.shape[1]
         residual = q
+        if grid:
+            q, k, v = _model_inputs(q, k, v)
         qh = _mm(q, self.w_qs.weight).view(B, Lq, H, dk)
         kh = _mm(k, self.w_ks.weight).view(B, Lk, H, dk)
         vh = _mm(v, self.w_vs.weight).view(B, Lk, H, dv)
@@ -79,6 +114,8 @@ class MultiHeadAttention(nn.Module):
         dt = promoted(attn, vh)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.to(dt), vh.to(dt))
         out = _mm(out.reshape(B, Lq, H * dv), self.fc.weight)
+        if grid:
+            out = mesh.model_sum(out)
         out = self.dropout(out) + residual
         mean = out.mean(-1, keepdim=True)
         var = ((out - mean) ** 2).mean(-1, keepdim=True)
@@ -87,6 +124,8 @@ class MultiHeadAttention(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
+    n_model, model_index = 1, 0  # the model group (parallel/tensor.py)
+
     def __init__(self, d_in: int, d_hid: int, dropout: float = 0.1):
         super().__init__()
         self.w_1 = Linear(d_in, d_hid)
@@ -98,7 +137,12 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x):
         residual = x
-        x = self.w_2(torch.relu(self.w_1(x)))
+        if self.n_model > 1:
+            h = torch.relu(self.w_1(mesh.model_copy(x)))
+            part = F.linear(h, self.w_2.weight.to(h.dtype))
+            x = mesh.model_sum(part) + self.w_2.bias.to(h.dtype)
+        else:
+            x = self.w_2(torch.relu(self.w_1(x)))
         return self.layer_norm(self.dropout(x) + residual)
 
 

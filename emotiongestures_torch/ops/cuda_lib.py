@@ -37,7 +37,12 @@ _LL = ctypes.c_longlong
 # as c_void_p
 SIGNATURES = {
     "attention": [("eg_attention", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])],
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                  ("eg_attention_partial", [_P, _I, _P, _P, _P, _P, _P, _I,
+                                            _P, _P, _P, _I, _I, _I, _I, _I,
+                                            _I, _P]),
+                  ("eg_residual_ln", [_P, _P, _I, _P, _P, _I, _P, _I, _I,
+                                      _P])],
     "mel": [("eg_mel", [_P, _LL, _I, _I, _I] + [_P] * 7)],
     "se_stage": [("eg_se_stage_fp32", [_P] * 16 + [_I] * 5 + [_P]),
                  ("eg_se_stage_bf16", [_P] * 11 + [_I] * 8 + [_P]),

@@ -22,6 +22,12 @@ parallelism of `parallel/mesh.py` is written out between those ranks.
 Only the primary process (`is_primary`) writes checkpoints and logs.
 `barrier` takes the place of the JAX `coordination_barrier`.
 
+Under tensor parallelism (`set_grid`) the ranks form the JAX package's
+`devices.reshape(n_data, n_model)` mesh: global rank r is data index
+r // n_model and model index r % n_model. The ranks of one model index
+form a data group (the batch's rows are split over it), those of one data
+index a model group (they hold one row slice and split the weights).
+
 The backend is NCCL for a card and gloo for the CPU. An explicit "gloo" on
 a card (the JAX `cpu_collectives`) lets two ranks share one card, which
 NCCL refuses: gloo moves CUDA tensors through the host.
@@ -105,16 +111,82 @@ def local_rank() -> int:
     return process_index() % cards if cards else process_index()
 
 
+# (n_data, n_model, data group, model group, the data group's gloo twin
+# for host tensors or None) on a grid of more than one model index
+_grid = None
+
+
+def set_grid(n_model: int) -> None:
+    """Lay the group's ranks out as n_data x n_model (one data group per
+    model index, one model group per data index); 1 is no grid. Every rank
+    calls it, with the same value (it makes process groups). Setting the
+    grid it already has is a no-op."""
+    global _grid
+    n_model = int(n_model)
+    if _grid is not None and _grid[1] == n_model:
+        return
+    _grid = None
+    if n_model <= 1:
+        return
+    world = process_count()
+    if world % n_model:
+        raise ValueError(f"model parallel {n_model} does not divide the "
+                         f"{world} processes of the group")
+    n_data = world // n_model
+    host = dist.get_backend() == "nccl"
+    r = process_index()
+    data = model = data_host = None
+    for m in range(n_model):  # every rank makes every group, in order
+        ranks = [d * n_model + m for d in range(n_data)]
+        g = dist.new_group(ranks)
+        h = dist.new_group(ranks, backend="gloo") if host else None
+        if r % n_model == m:
+            data, data_host = g, h
+    for d in range(n_data):
+        g = dist.new_group([d * n_model + m for m in range(n_model)])
+        if r // n_model == d:
+            model = g
+    _grid = (n_data, n_model, data, model, data_host)
+
+
+def model_count() -> int:
+    """Ranks that split one model's weights (1 off a grid)."""
+    return _grid[1] if _grid else 1
+
+
+def model_index() -> int:
+    return process_index() % _grid[1] if _grid else 0
+
+
+def data_count() -> int:
+    """Ranks that split the global batch's rows."""
+    return _grid[0] if _grid else process_count()
+
+
+def data_index() -> int:
+    return process_index() // _grid[1] if _grid else process_index()
+
+
+def data_group():
+    """This rank's data group; None (the whole group) off a grid."""
+    return _grid[2] if _grid else None
+
+
+def model_group():
+    return _grid[3] if _grid else None
+
+
 def process_batch_slice(n_global: int) -> slice:
-    """The half-open row range of the global batch this process loads.
-    Requires the global batch to divide evenly across processes."""
-    n_proc = process_count()
+    """The half-open row range of the global batch this process loads: its
+    data index's share, so the model ranks of one data group load the same
+    rows. Requires the global batch to divide evenly over the data axis."""
+    n_proc = data_count()
     if n_global % n_proc:
         raise ValueError(
             f"global batch {n_global} must divide across {n_proc} "
             "processes")
     per = n_global // n_proc
-    i = process_index()
+    i = data_index()
     return slice(i * per, (i + 1) * per)
 
 
@@ -143,23 +215,28 @@ def broadcast_module(module: torch.nn.Module) -> torch.nn.Module:
 _host_group = None
 
 
-def host_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum over the processes of a small CPU tensor (flags, counts):
-    beside NCCL through a gloo group of its own, so that it neither
-    touches the card nor waits for its stream."""
+def host_sum(t: torch.Tensor, data_axis: bool = False) -> torch.Tensor:
+    """The sum over the processes (`data_axis`: over this rank's data
+    group) of a small CPU tensor (flags, counts): beside NCCL through a
+    gloo group of its own, so that it neither touches the card nor waits
+    for its stream."""
     global _host_group
-    group = None
+    group = data_group() if data_axis else None
     if dist.get_backend() == "nccl":
-        if _host_group is None:
-            _host_group = dist.new_group(backend="gloo")
-        group = _host_group
+        if data_axis and _grid:
+            group = _grid[4]
+        else:
+            if _host_group is None:
+                _host_group = dist.new_group(backend="gloo")
+            group = _host_group
     t = t.clone()
     dist.all_reduce(t, group=group)
     return t
 
 
 def shutdown() -> None:
-    global _host_group
+    global _host_group, _grid
     if is_initialized():
         dist.destroy_process_group()
     _host_group = None
+    _grid = None

@@ -28,6 +28,17 @@ divides the batch; an explicit count that cannot shard the batch, or that
 exceeds the visible cards, is a SystemExit. On the CPU, 0 means one process
 and ranks start only when a count is given (the JAX package's CPU tests see
 8 virtual devices instead). `launch` starts one process per rank.
+
+Tensor parallelism (port of mesh.py:91-158, `--model_parallel N`): the
+ranks form an n_data x n_model grid (`distributed.set_grid`, `tp_setup`),
+and every collective above runs over this rank's data group: `world()` and
+`rank()` are the data axis's size and index, so BatchNorm, TMMemory, the
+contrastive terms, the dropout draws and the gradient mean see each row
+once. The model group splits the FFN and MHA weights
+(`parallel/tensor.py`) and joins their partial products with Megatron's
+two operators: `model_copy` (identity forward, sum all-reduce backward)
+where a replicated activation enters a sharded layer, `model_sum` (sum
+all-reduce forward, identity backward) where its partial output leaves.
 """
 from __future__ import annotations
 
@@ -48,13 +59,14 @@ _single = False  # single_process() in force
 
 
 def world() -> int:
-    """The number of data-parallel ranks: 1 outside a group, or inside
-    `single_process()`."""
-    return 1 if _single else distributed.process_count()
+    """The number of data-parallel ranks (the data axis of a grid): 1
+    outside a group, or inside `single_process()`."""
+    return 1 if _single else distributed.data_count()
 
 
 def rank() -> int:
-    return 0 if _single else distributed.process_index()
+    """This rank's index on the data axis."""
+    return 0 if _single else distributed.data_index()
 
 
 def active() -> bool:
@@ -114,6 +126,32 @@ def dp_setup(num_devices: int, batch_size: int, device="cuda"):
     return None if n <= 1 else n
 
 
+def tp_setup(num_devices: int, model_parallel: int, batch_size: int,
+             device="cuda"):
+    """The (n_data, n_model) grid of a `--model_parallel` run, None when it
+    is 1 x 1 (mesh.py:91-111). `num_devices` keeps the semantics of
+    `resolve_num_devices`; the device count must factor as n_data x
+    model_parallel and the global batch must divide over n_data."""
+    return _grid(resolve_num_devices(num_devices, device), model_parallel,
+                 batch_size)
+
+
+def _grid(n: int, model_parallel: int, batch_size: int):
+    if n % model_parallel:
+        raise SystemExit(
+            f"--model_parallel {model_parallel} must divide the "
+            f"{n}-device mesh")
+    n_data = n // model_parallel
+    if n_data > 1 and batch_size % n_data:
+        raise SystemExit(
+            f"--batch_size {batch_size} must be divisible by the "
+            f"data axis ({n_data} = {n} devices / "
+            f"{model_parallel}-way model parallel)")
+    if n_data == 1 and model_parallel == 1:
+        return None
+    return n_data, model_parallel
+
+
 # ---------------------------------------------------------------------------
 # the CLIs' rule: join a group, or start one
 # ---------------------------------------------------------------------------
@@ -128,12 +166,12 @@ def plan(args, batch_size: int, device) -> int:
     number of processes this run needs: 1, or the ranks of the group this
     process has joined (the multi-host flags, torchrun, or a group that
     its caller initialised), or more than 1 with no group yet, when the
-    caller starts them with `launch`."""
-    if getattr(args, "model_parallel", 1) > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1: tensor parallelism (a model split over "
-            "more than one card) is not ported yet (ROADMAP.md queue 1, "
-            "item 6b)")
+    caller starts them with `launch`. In a group, `--model_parallel`
+    lays the ranks out as a grid (`distributed.set_grid`)."""
+    model_parallel = getattr(args, "model_parallel", 1)
+    if model_parallel < 1:
+        raise SystemExit(f"--model_parallel must be >= 1, got "
+                         f"{model_parallel}")
     mh = multihost(args)
     torchrun = all(k in os.environ for k in distributed.TORCHRUN_ENV)
     if not distributed.is_initialized() and (mh or torchrun):
@@ -156,7 +194,11 @@ def plan(args, batch_size: int, device) -> int:
     if distributed.is_initialized():
         n = distributed.process_count()
         _check_group(args, batch_size, n)
+        distributed.set_grid(model_parallel)
         return n
+    if model_parallel > 1:
+        grid = tp_setup(args.num_devices, model_parallel, batch_size, device)
+        return 1 if grid is None else grid[0] * grid[1]
     return dp_setup(args.num_devices, batch_size, device) or 1
 
 
@@ -164,6 +206,10 @@ def _check_group(args, batch_size: int, n: int) -> None:
     if args.num_devices not in (0, n):
         raise SystemExit(f"--num_devices {args.num_devices} disagrees with "
                          f"the {n} processes of the group (one per card)")
+    model_parallel = getattr(args, "model_parallel", 1)
+    if model_parallel > 1:
+        _grid(n, model_parallel, batch_size)
+        return
     if batch_size % n:
         raise SystemExit(f"--batch_size {batch_size} must divide over the "
                          f"{n}-process global mesh")
@@ -268,9 +314,11 @@ def _comm(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _sum_(x: torch.Tensor) -> torch.Tensor:
+def _sum_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `x` over `group`, by default this rank's data group."""
     y = _comm(_wide(x).contiguous().clone())
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=distributed.data_group() if group is None
+                    else group)
     return y.to(device=x.device, dtype=x.dtype)
 
 
@@ -282,6 +330,41 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _sum_(g)
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Megatron's f: a replicated activation into a sharded layer."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(g, distributed.model_group())
+
+
+class _ModelSum(torch.autograd.Function):
+    """Megatron's g: a sharded layer's partial output summed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _sum_(x, distributed.model_group())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def model_copy(x: torch.Tensor) -> torch.Tensor:
+    """`x` itself; its gradient is summed over the model group."""
+    return _ModelCopy.apply(x) if distributed.model_count() > 1 else x
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model group's partial outputs (in fp32 on the wire);
+    the gradient passes through unchanged."""
+    return _ModelSum.apply(x) if distributed.model_count() > 1 else x
 
 
 class _AllGather(torch.autograd.Function):
@@ -302,11 +385,12 @@ def _gather(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     w = _comm(_wide(x).contiguous())
     out = w.new_zeros((world() * n,) + tuple(x.shape[1:]))
+    group = distributed.data_group()
     if dist.get_backend() == "nccl":
-        dist.all_gather_into_tensor(out, w)
+        dist.all_gather_into_tensor(out, w, group=group)
     else:
         out[rank() * n:(rank() + 1) * n] = w
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
     return out.to(device=x.device, dtype=x.dtype)
 
 
@@ -355,20 +439,26 @@ def mean_metrics(metrics: dict) -> dict:
     return dict(zip(keys, means.unbind()))
 
 
+def _grouped() -> bool:
+    return not _single and distributed.process_count() > 1
+
+
 def any_rank(flag: bool) -> bool:
     """True on every rank when `flag` is true on one (a signal that reached
-    one process stops them all at the same step)."""
-    if not active():
+    one process stops them all at the same step); every rank of the group,
+    both axes of a grid."""
+    if not _grouped():
         return bool(flag)
     return bool(distributed.host_sum(torch.tensor([int(flag)])).item())
 
 
 def same_on_ranks(value: int, what: str) -> int:
-    """Raise unless every rank holds the same integer `value`."""
-    if active():
+    """Raise unless every rank of the group holds the same integer
+    `value`."""
+    if _grouped():
         s, s2 = distributed.host_sum(
             torch.tensor([value, value * value], dtype=torch.int64)).tolist()
-        if s2 * world() != s * s:
+        if s2 * distributed.process_count() != s * s:
             raise RuntimeError(f"ranks disagree on {what} (this rank: "
                                f"{value})")
     return value

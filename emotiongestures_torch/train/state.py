@@ -16,6 +16,12 @@ Gradients are reduced after the upcast to the parameters' fp32: under
 grad_dtype="bfloat16" each rank's bf16 gradient of its rows is summed in
 fp32, where one process rounds the global batch's gradient to bf16 once,
 so the two differ by the bf16 rounding of the partial sums.
+
+Under tensor parallelism (parallel/tensor.py) the mean runs over the data
+group only, each shard's gradient beside its shard; Adam updates the
+shards and their moments; the global norm of `grad_clip` sums each sharded
+gradient's squares over the model group once and counts each replicated
+one once (optax's clip_by_global_norm over the whole tree).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from typing import Callable, Iterable, Optional
 import torch
 import torch.nn as nn
 
-from ..parallel import mesh
+from ..parallel import mesh, tensor
 
 
 @dataclass
@@ -58,7 +64,8 @@ class TrainState:
             [torch.zeros_like(p) if g is None else g.to(p.dtype)
              for p, g in zip(params, grads)])
         if self.grad_clip > 0:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip,
+                                        tensor.sharded_flags(self.module))
         for p, g in zip(params, grads):
             p.grad = g
         if self.lr_schedule is not None:
@@ -101,12 +108,21 @@ def finite_check(obj) -> bool:
     return bool(torch.stack(flags).all()) if flags else True
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> list:
+def clip_by_global_norm(grads: list, max_norm: float,
+                        sharded=None) -> list:
     """optax.clip_by_global_norm: with n the l2 norm of all of `grads`
     together, each g becomes g / n * max_norm when n >= max_norm and stays
     as it is otherwise. No epsilon (torch.nn.utils.clip_grad_norm_ divides
-    by n + 1e-6). No host sync: the choice is a torch.where."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    by n + 1e-6). No host sync: the choice is a torch.where. `sharded`
+    marks the gradients that are this rank's shards of the model group's
+    tensors: their squares are summed over the group."""
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    if sharded is None or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        split = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        whole = mesh.model_sum(torch.where(split, sq, 0).sum())
+        norm = torch.sqrt(whole + torch.where(split, 0, sq).sum())
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm * max_norm) for g in grads]

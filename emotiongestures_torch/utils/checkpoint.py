@@ -15,7 +15,10 @@ a flag the train loop polls; one writer process holds each checkpoint
 directory (a lock file with its pid and /proc start-time token). Under data
 parallelism only the primary process writes (a save on another rank
 raises before it reaches the lock), every rank waits at a barrier after
-each save, and on resume every rank reads the same file.
+each save, and on resume every rank reads the same file. Under tensor
+parallelism a trainer saves `parallel.tensor.whole_tree(state)`, the
+shards gathered into the one-process layout, and cuts what it resumes
+from after the load, so a checkpoint reads back in any layout.
 
 `load_checkpoint` and `load_model` also read the JAX package's orbax
 `checkpoint_iteration<N>` directories (utils/orbax.py) where a directory
@@ -164,9 +167,20 @@ def _host_copy(obj):
 
 
 def _state_tree(state) -> dict:
+    """A host copy of what a checkpoint holds: of a train state, or of a
+    tree of its parts (parallel.tensor.whole_tree's, a sharded state's
+    gathered into the one-process layout)."""
+    if isinstance(state, dict):
+        return {"step": int(state["step"]),
+                "model": _host_copy(state["model"]),
+                "optimizer": _host_copy(state["optimizer"])}
     return {"step": int(state.step),
             "model": _host_copy(state.module.state_dict()),
             "optimizer": _host_copy(state.optimizer.state_dict())}
+
+
+def _step(state) -> int:
+    return int(state["step"] if isinstance(state, dict) else state.step)
 
 
 def _write_tree(tree: dict, directory: Path, step: int,
@@ -199,7 +213,7 @@ def save_checkpoint(state, directory, step: int | None = None,
     directory = Path(directory).absolute()
     directory.mkdir(parents=True, exist_ok=True)
     _acquire_writer_lock(directory)
-    step = int(state.step) if step is None else int(step)
+    step = _step(state) if step is None else int(step)
     return _write_tree(_state_tree(state), directory, step, max_to_keep)
 
 
@@ -227,7 +241,7 @@ class AsyncSaver:
         directory = Path(directory).absolute()
         directory.mkdir(parents=True, exist_ok=True)
         _acquire_writer_lock(directory)
-        step = int(state.step) if step is None else int(step)
+        step = _step(state) if step is None else int(step)
         tree = _state_tree(state)
         self.wait()
         self._pending = self._executor.submit(

@@ -69,6 +69,49 @@ def test_orbax_checkpoint_reads_without_jax_orbax_tensorstore_zstandard():
     assert out.stdout.split() == ["checkpoint_iteration2", "2"]
 
 
+def test_tensor_parallel_modules_run_without_jax():
+    """parallel/tensor.py, the Megatron operators and the attention
+    kernel's partial-heads form import and run on CPU tensors in a process
+    where jax, flax and emotiongestures_tpu cannot be imported: a
+    generator's weights cut and gathered back bit for bit, the partials of
+    two head halves summed and closed by residual_layer_norm equal to the
+    whole sublayer's plain version, and no launch counted."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'emotiongestures_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from emotiongestures_torch.models.generator import "
+        "GestureTransformer\n"
+        "from emotiongestures_torch.ops import fused_attention as FA\n"
+        "from emotiongestures_torch.parallel import mesh, tensor\n"
+        "torch.manual_seed(0)\n"
+        "g = GestureTransformer(n_words=8, d_model=64, d_inner=128,\n"
+        "                       n_layers=1, device='cpu')\n"
+        "full = g.state_dict()\n"
+        "back = tensor.gather_state([tensor.shard_state(full, i, 2)\n"
+        "                            for i in range(2)])\n"
+        "assert all(torch.equal(back[k], full[k]) for k in full)\n"
+        "x = torch.randn(2, 5, 128)\n"
+        "w = [torch.randn(128, 128) / 12 for _ in range(4)]\n"
+        "s, b = torch.ones(128), torch.zeros(128)\n"
+        "parts = [FA.fused_attention_partial(\n"
+        "    x, x, w[0][i * 64:(i + 1) * 64], w[1][i * 64:(i + 1) * 64],\n"
+        "    w[2][i * 64:(i + 1) * 64],\n"
+        "    w[3][:, i * 64:(i + 1) * 64].contiguous(), n_head_local=4,\n"
+        "    d_k=16) for i in range(2)]\n"
+        "got = FA.residual_layer_norm(mesh.model_sum(parts[0] + parts[1]),\n"
+        "                             x, s, b)\n"
+        "want = FA.fused_attention_plain(x, x, *w, s, b, n_head=8, d_k=16)\n"
+        "assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)\n"
+        "assert FA.partial_launches == FA.residual_launches == 0\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
+
+
 def _guarded_lmdb_imports(tree) -> set:
     """The `import lmdb` statements in `_iter_lmdb`'s try whose ImportError
     handler falls back to the pure-Python reader: the one place the `lmdb`
@@ -209,6 +252,13 @@ def test_entry_points_default_to_cuda():
         lambda: kfold_cli.main(kfold_cli.build_parser().parse_args(
             ["--synthetic", "8", "--batch_size", "8", "--num_devices",
              "2"])),
+        # tensor parallelism: a data x model grid of the same rule
+        lambda: eval_cli.main(eval_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--test_batch_size", "8", "--num_devices",
+             "2", "--model_parallel", "2"])),
+        lambda: train_cli.main(train_cli.build_parser().parse_args(
+            ["--synthetic", "8", "--batch_size", "8", "--num_devices", "2",
+             "--model_parallel", "2"])),
         # BEAT's 6-limb aligner on the card's onset frontend
         lambda: BeatAlignerV1().score_batch(
             np.zeros((1, 64000), np.float32), np.zeros((1, 60, 282)),

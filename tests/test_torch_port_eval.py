@@ -207,14 +207,15 @@ def test_parser_flag_surface_matches_jax():
     ([], FileNotFoundError, "no GestureStore"),
     (["--synthetic", "8", "--test_batch_size", "8", "--num_devices", "3"],
      SystemExit, "divisible"),
-    (["--synthetic", "8", "--model_parallel", "2"], NotImplementedError,
-     "one card"),
+    (["--synthetic", "8", "--model_parallel", "2"], SystemExit,
+     "must divide the 1-device mesh"),
 ], ids=["missing-store", "devices", "model-parallel"])
 def test_cli_refuses_what_is_not_ported(flags, error, match, tmp_path):
     """Without --synthetic the CLI reads the store at --test_data_path and
     names it when it is missing; an explicit --num_devices that does not
-    divide the batch is refused, as in the JAX package; tensor parallelism
-    is not ported."""
+    divide the batch is refused, as in the JAX package; so is a
+    --model_parallel that does not divide the device count (on the CPU
+    --num_devices 0 is one process: mesh.py:98-101's message)."""
     args = port_cli.build_parser().parse_args(
         ["--device", "cpu", "--log_save_path", str(tmp_path),
          "--test_data_path", str(tmp_path / "test")] + flags)

@@ -330,7 +330,9 @@ def test_num_devices_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--model_parallel", "2"], NotImplementedError, "item 6b"),
+    (["--model_parallel", "2", "--coordinator_address", "localhost:1",
+      "--num_processes", "6", "--process_id", "0"], SystemExit,
+     "data axis"),
     (["--coordinator_address", "localhost:1", "--num_processes", "2"],
      SystemExit, "together"),
     (["--coordinator_address", "localhost:1", "--num_processes", "2",

@@ -99,7 +99,9 @@ def test_profile_dir_writes_a_trace(run_dir, tmp_path):
     (["--synthetic", "0", "--train_data_path", "missing/train"],
      FileNotFoundError, "no GestureStore"),
     (["--num_devices", "100000"], SystemExit, "visible"),
-    (["--model_parallel", "2"], NotImplementedError, "item 6"),
+    (["--model_parallel", "2", "--coordinator_address", "localhost:1234",
+      "--num_processes", "2", "--process_id", "0"], SystemExit,
+     "single-host only"),
     (["--coordinator_address", "localhost:1234", "--num_processes", "3",
       "--process_id", "0"], SystemExit, "must divide"),
     (["--variant", "unknown"], SystemExit, "2"),
